@@ -1,0 +1,326 @@
+"""Core neural layers: norms, rotary, GQA attention, MLPs (counterpart of
+``repro.models.layers``).
+
+All layers are plain functions over parameter dicts of tensors, with the
+JAX package's parameter layout, so that parameters convert leaf for leaf.
+Large products go to ``torch.matmul``, as the JAX package left them to XLA.
+
+Attention paths:
+* ``torch``  — online-softmax causal attention over KV blocks, the
+               counterpart of ``attention_xla`` (computes the masked full
+               scores, block by block).
+* ``banded`` — sliding-window attention over a static band per query block.
+* ``flash``  — the hand-written CUDA kernel in ``repro_torch.kernels``
+               (the plain version on the CPU); takes the place of ``pallas``.
+* decode     — single-token attention against a KV cache.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple, Union
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchConfig
+
+Params = Dict[str, torch.Tensor]
+NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# Initializers (float32 normals from an explicit generator, cast to dtype)
+# ---------------------------------------------------------------------------
+def dense_init(gen: torch.Generator, in_dim: int, shape, dtype, device) -> torch.Tensor:
+    scale = 1.0 / math.sqrt(in_dim)
+    x = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+    return (x * scale).to(dtype)
+
+
+def embed_init(gen: torch.Generator, shape, dtype, device) -> torch.Tensor:
+    x = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+    return (x * 0.02).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Norms (computed in f32, cast back)
+# ---------------------------------------------------------------------------
+def init_norm(cfg: ArchConfig, device, lead=()) -> Params:
+    d = cfg.d_model
+    p = {"scale": torch.ones((*lead, d), dtype=torch.float32, device=device)}
+    if cfg.norm == "layernorm":
+        p["bias"] = torch.zeros((*lead, d), dtype=torch.float32, device=device)
+    return p
+
+
+def apply_norm(p: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    dtype = x.dtype
+    xf = x.float()
+    if cfg.norm == "layernorm":
+        mean = xf.mean(-1, keepdim=True)
+        var = ((xf - mean) ** 2).mean(-1, keepdim=True)
+        out = (xf - mean) * torch.rsqrt(var + 1e-5) * p["scale"] + p["bias"]
+    else:  # rmsnorm
+        ms = (xf * xf).mean(-1, keepdim=True)
+        out = xf * torch.rsqrt(ms + 1e-6) * p["scale"]
+    return out.to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embedding
+# ---------------------------------------------------------------------------
+def rope_frequencies(head_dim: int, theta: float, device) -> torch.Tensor:
+    exponent = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    return 1.0 / (theta ** exponent)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (..., S, H, hd), positions: broadcastable to (..., S)."""
+    hd = x.shape[-1]
+    freqs = rope_frequencies(hd, theta, x.device)  # (hd/2,)
+    angles = positions[..., None].float() * freqs  # (..., S, hd/2)
+    cos = torch.cos(angles)[..., None, :]  # (..., S, 1, hd/2)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+def mlp_param_shapes(cfg: ArchConfig) -> Dict[str, Tuple[int, ...]]:
+    d, ff = cfg.d_model, cfg.d_ff
+    if cfg.mlp_act.endswith("_glu"):
+        return {"wi": (d, ff), "wg": (d, ff), "wo": (ff, d)}
+    return {"wi": (d, ff), "wo": (ff, d)}
+
+
+def init_mlp(gen, cfg: ArchConfig, dtype, device, lead=()) -> Params:
+    shapes = mlp_param_shapes(cfg)
+    return {
+        name: dense_init(gen, shape[0], (*lead, *shape), dtype, device)
+        for name, shape in sorted(shapes.items())
+    }
+
+
+def apply_mlp(p: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    h = x @ p["wi"]
+    if cfg.mlp_act == "silu_glu":
+        h = F.silu(h) * (x @ p["wg"])
+    elif cfg.mlp_act == "gelu_glu":
+        h = F.gelu(h, approximate="tanh") * (x @ p["wg"])  # jax.nn.gelu default
+    elif cfg.mlp_act == "relu2":
+        h = torch.square(F.relu(h))
+    elif cfg.mlp_act == "gelu":
+        h = F.gelu(h, approximate="tanh")
+    else:
+        raise ValueError(f"unknown mlp_act {cfg.mlp_act}")
+    return h @ p["wo"]
+
+
+# ---------------------------------------------------------------------------
+# GQA attention
+# ---------------------------------------------------------------------------
+def init_attention(gen, cfg: ArchConfig, dtype, device, lead=()) -> Params:
+    d, H, K, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    p = {
+        "wq": dense_init(gen, d, (*lead, d, H, hd), dtype, device),
+        "wk": dense_init(gen, d, (*lead, d, K, hd), dtype, device),
+        "wv": dense_init(gen, d, (*lead, d, K, hd), dtype, device),
+        "wo": dense_init(gen, H * hd, (*lead, H, hd, d), dtype, device),
+    }
+    if cfg.attn_bias:
+        p["bq"] = torch.zeros((*lead, H, hd), dtype=dtype, device=device)
+        p["bk"] = torch.zeros((*lead, K, hd), dtype=dtype, device=device)
+        p["bv"] = torch.zeros((*lead, K, hd), dtype=dtype, device=device)
+    return p
+
+
+def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """einsum("bsd,dhk->bshk") as one contiguous matmul."""
+    d, h, k = w.shape
+    return (x @ w.reshape(d, h * k)).view(*x.shape[:-1], h, k)
+
+
+def qkv_project(p: Params, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor):
+    q = _project(x, p["wq"])
+    k = _project(x, p["wk"])
+    v = _project(x, p["wv"])
+    if cfg.attn_bias:
+        q = q + p["bq"]
+        k = k + p["bk"]
+        v = v + p["bv"]
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _largest_divisor_at_most(n: int, cap: int) -> int:
+    """Largest divisor of n that is <= cap (block sizes must tile exactly)."""
+    for d in range(cap, 0, -1):
+        if n % d == 0:
+            return d
+    return 1
+
+
+def _expand_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """(B, S, K, hd) -> (B, S, H, hd) by repeating each KV head H/K times."""
+    reps = n_heads // k.shape[2]
+    return k if reps == 1 else k.repeat_interleave(reps, dim=2)
+
+
+def attention_torch(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    cfg: ArchConfig,
+    kv_block: int = 1024,
+) -> torch.Tensor:
+    """Online-softmax causal attention over KV blocks (``attention_xla``).
+
+    q: (B, S, H, hd); k, v: (B, S, K, hd).  Returns (B, S, H, hd).
+    """
+    B, S, H, hd = q.shape
+    k = _expand_kv(k, H)
+    v = _expand_kv(v, H)
+    kv_block = _largest_divisor_at_most(S, min(kv_block, S))
+    scale = 1.0 / math.sqrt(hd)
+    qf = (q * scale).float()  # scaled in q's dtype, scored in f32 as XLA does
+    q_pos = torch.arange(S, device=q.device)
+    m = torch.full((B, S, H), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((B, S, H), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, S, H, hd), dtype=torch.float32, device=q.device)
+    for start in range(0, S, kv_block):
+        kj = k[:, start : start + kv_block]
+        vj = v[:, start : start + kv_block]
+        kv_pos = start + torch.arange(kv_block, device=q.device)
+        s = torch.einsum("bqhk,bshk->bqsh", qf, kj.float())
+        mask = q_pos[:, None] >= kv_pos[None, :]
+        if cfg.sliding_window is not None:
+            mask &= q_pos[:, None] < kv_pos[None, :] + cfg.sliding_window
+        s = s.masked_fill(~mask[None, :, :, None], NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=2))
+        p = torch.exp(s - m_new[:, :, None, :])
+        correction = torch.exp(m - m_new)
+        l = l * correction + p.sum(dim=2)
+        pv = torch.einsum("bqsh,bshk->bqhk", p.to(kj.dtype), vj).float()
+        acc = acc * correction[..., None] + pv
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.to(q.dtype)
+
+
+def attention_banded(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    cfg: ArchConfig,
+    q_block: int = 1024,
+) -> torch.Tensor:
+    """Sliding-window attention with a static band per query block.
+
+    Each query block of length Bq attends keys in
+    [blk_start - window, blk_start + Bq): a slice of static length
+    window + Bq (clamped at 0).  Sub-quadratic: O(S * (window + Bq)).
+    """
+    window = cfg.sliding_window
+    if window is None:
+        raise ValueError("attention_banded needs cfg.sliding_window")
+    B, S, H, hd = q.shape
+    k = _expand_kv(k, H)
+    v = _expand_kv(v, H)
+    q_block = _largest_divisor_at_most(S, min(q_block, S))
+    band = min(window + q_block, S)
+    scale = 1.0 / math.sqrt(hd)
+    outs = []
+    for i in range(S // q_block):
+        q_i = q[:, i * q_block : (i + 1) * q_block]
+        start_c = min(max(i * q_block - window, 0), S - band)
+        k_band = k[:, start_c : start_c + band]
+        v_band = v[:, start_c : start_c + band]
+        q_pos = i * q_block + torch.arange(q_block, device=q.device)
+        kv_pos = start_c + torch.arange(band, device=q.device)
+        s = torch.einsum("bqhk,bshk->bqsh", (q_i * scale).float(), k_band.float())
+        mask = (q_pos[:, None] >= kv_pos[None, :]) & (q_pos[:, None] < kv_pos[None, :] + window)
+        s = s.masked_fill(~mask[None, :, :, None], NEG_INF)
+        p = torch.softmax(s, dim=2)
+        outs.append(torch.einsum("bqsh,bshk->bqhk", p.to(v_band.dtype), v_band))
+    return torch.cat(outs, dim=1).to(q.dtype)
+
+
+def attention_decode(
+    q: torch.Tensor,  # (B, 1, H, hd)
+    k_cache: torch.Tensor,  # (B, S, K, hd)
+    v_cache: torch.Tensor,
+    length: Union[int, torch.Tensor],  # (B,) or scalar: valid cache entries
+    cfg: ArchConfig,
+) -> torch.Tensor:
+    B, S, K, hd = k_cache.shape
+    H = q.shape[2]
+    reps = H // K
+    scale = 1.0 / math.sqrt(hd)
+    qg = (q * scale).reshape(B, 1, K, reps, hd)
+    s = torch.einsum("bqkrh,bskh->bqksr", qg, k_cache).float()
+    pos = torch.arange(S, device=q.device)
+    if isinstance(length, int):  # a fill, not a host-to-device copy (which syncs)
+        length = torch.full((B, 1), length, device=q.device)
+    else:
+        length = length.to(q.device).broadcast_to((B,))[:, None]
+    valid = pos[None, :] < length
+    if cfg.sliding_window is not None and S > cfg.sliding_window:
+        # linear (non-ring) cache longer than the window: mask old entries
+        valid &= pos[None, :] >= length - cfg.sliding_window
+    s = s.masked_fill(~valid[:, None, None, :, None], NEG_INF)
+    p = torch.softmax(s, dim=3)
+    out = torch.einsum("bqksr,bskh->bqkrh", p.to(v_cache.dtype), v_cache)
+    return out.reshape(B, 1, H, hd).to(q.dtype)
+
+
+def attention_output(p: Params, ctx: torch.Tensor) -> torch.Tensor:
+    """einsum("bshk,hkd->bsd") as one matmul."""
+    H, hd, d = p["wo"].shape
+    return ctx.reshape(*ctx.shape[:2], H * hd) @ p["wo"].reshape(H * hd, d)
+
+
+def run_attention(
+    p: Params,
+    x: torch.Tensor,
+    cfg: ArchConfig,
+    positions: torch.Tensor,
+    impl: str = "torch",
+) -> torch.Tensor:
+    """Full attention sublayer for train/prefill."""
+    q, k, v = qkv_project(p, x, cfg, positions)
+    if cfg.sliding_window is not None and x.shape[1] > cfg.sliding_window:
+        ctx = attention_banded(q, k, v, cfg)
+    elif impl == "flash":
+        from repro_torch.kernels.attention import ops as flash_ops
+
+        ctx = flash_ops.flash_attention(q, k, v, causal=True, window=cfg.sliding_window)
+    elif impl == "torch":
+        ctx = attention_torch(q, k, v, cfg)
+    else:
+        raise ValueError(f"unknown attention impl {impl!r} (torch | flash)")
+    return attention_output(p, ctx)
+
+
+def run_attention_decode(
+    p: Params,
+    x: torch.Tensor,  # (B, 1, d)
+    cfg: ArchConfig,
+    cache: Dict[str, torch.Tensor],  # this layer's (B, S, K, hd) views
+    position: int,  # true sequence position (for rope)
+    write_pos: Optional[int] = None,  # cache write index (ring buffers)
+) -> torch.Tensor:
+    """One token of attention.  Writes this token's k/v into ``cache`` in
+    place (the JAX function returns an updated copy instead)."""
+    write_pos = position if write_pos is None else write_pos
+    positions = torch.arange(position, position + 1, device=x.device)  # no host copy
+    q, k, v = qkv_project(p, x, cfg, positions)
+    cache["k"][:, write_pos] = k[:, 0].to(cache["k"].dtype)
+    cache["v"][:, write_pos] = v[:, 0].to(cache["v"].dtype)
+    length = min(position + 1, cache["k"].shape[1])
+    ctx = attention_decode(q, cache["k"], cache["v"], length, cfg)
+    return attention_output(p, ctx)

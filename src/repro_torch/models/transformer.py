@@ -1,0 +1,184 @@
+"""Decoder-only transformer LM assembly for the dense family (counterpart of
+``repro.models.transformer``).
+
+Parameters keep the JAX layout: every block's leaves are stacked on a
+leading layer axis, so a JAX parameter tree converts leaf for leaf
+(``repro_torch.interop``).  Where JAX scans over that axis, the port loops
+over it in Python and indexes each leaf (a view, no copy).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Tuple
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from .layers import (
+    apply_mlp,
+    apply_norm,
+    embed_init,
+    init_attention,
+    init_mlp,
+    init_norm,
+    run_attention,
+    run_attention_decode,
+)
+
+PyTree = Any
+
+
+def _check_family(cfg: ArchConfig) -> None:
+    if cfg.moe is not None or cfg.frontend != "none" or cfg.n_codebooks > 1:
+        raise NotImplementedError(
+            f"{cfg.name}: the port's transformer covers the dense token family only"
+        )
+
+
+def _torch_dtype(name: str) -> torch.dtype:
+    return {"bfloat16": torch.bfloat16, "float32": torch.float32}[name]
+
+
+def layer_params(layers: PyTree, i: int) -> PyTree:
+    """Layer ``i``'s parameters: each stacked leaf indexed on its first axis."""
+    if isinstance(layers, dict):
+        return {k: layer_params(v, i) for k, v in layers.items()}
+    return layers[i]
+
+
+# ---------------------------------------------------------------------------
+# Block
+# ---------------------------------------------------------------------------
+def init_layers(gen: torch.Generator, cfg: ArchConfig, device) -> PyTree:
+    """All blocks' parameters, stacked on a leading layer axis."""
+    dtype = _torch_dtype(cfg.param_dtype)
+    lead = (cfg.n_layers,)
+    p = {
+        "norm_attn": init_norm(cfg, device, lead=lead),
+        "attn": init_attention(gen, cfg, dtype, device, lead=lead),
+    }
+    if not cfg.parallel_block:
+        p["norm_mlp"] = init_norm(cfg, device, lead=lead)
+    p["mlp"] = init_mlp(gen, cfg, dtype, device, lead=lead)
+    return p
+
+
+def apply_block(
+    p: PyTree,
+    x: torch.Tensor,
+    cfg: ArchConfig,
+    positions: torch.Tensor,
+    attn_impl: str,
+) -> torch.Tensor:
+    if cfg.parallel_block:
+        # Command-R style: one pre-norm, attention and MLP in parallel.
+        h = apply_norm(p["norm_attn"], x, cfg)
+        attn_out = run_attention(p["attn"], h, cfg, positions, attn_impl)
+        return x + attn_out + apply_mlp(p["mlp"], h, cfg)
+    h = apply_norm(p["norm_attn"], x, cfg)
+    x = x + run_attention(p["attn"], h, cfg, positions, attn_impl)
+    h = apply_norm(p["norm_mlp"], x, cfg)
+    return x + apply_mlp(p["mlp"], h, cfg)
+
+
+def apply_block_decode(
+    p: PyTree,
+    x: torch.Tensor,  # (B, 1, d)
+    cfg: ArchConfig,
+    cache: Dict[str, torch.Tensor],
+    position: int,
+    write_pos: int,
+) -> torch.Tensor:
+    h = apply_norm(p["norm_attn"], x, cfg)
+    attn_out = run_attention_decode(p["attn"], h, cfg, cache, position, write_pos)
+    if cfg.parallel_block:
+        return x + attn_out + apply_mlp(p["mlp"], h, cfg)
+    x = x + attn_out
+    h = apply_norm(p["norm_mlp"], x, cfg)
+    return x + apply_mlp(p["mlp"], h, cfg)
+
+
+# ---------------------------------------------------------------------------
+# Full model
+# ---------------------------------------------------------------------------
+def init_params(gen: torch.Generator, cfg: ArchConfig, device) -> PyTree:
+    """Random parameters drawn on ``device`` from ``gen`` (a generator on
+    that device).  The draws cannot match JAX's; parity tests convert JAX's
+    parameters instead."""
+    _check_family(cfg)
+    dtype = _torch_dtype(cfg.param_dtype)
+    p: Dict[str, PyTree] = {
+        "layers": init_layers(gen, cfg, device),
+        "final_norm": init_norm(cfg, device),
+        "embed": embed_init(gen, (cfg.padded_vocab_size, cfg.d_model), dtype, device),
+    }
+    if not cfg.tied_embeddings:
+        p["lm_head"] = embed_init(gen, (cfg.d_model, cfg.padded_vocab_size), dtype, device)
+    return p
+
+
+def embed_inputs(p: PyTree, cfg: ArchConfig, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Token embedding.  Returns (B, S, d) activations."""
+    return p["embed"][batch["tokens"]].to(_torch_dtype(cfg.activation_dtype))
+
+
+def logits_from_hidden(p: PyTree, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
+    head = p["embed"].T if cfg.tied_embeddings else p["lm_head"]
+    return h @ head
+
+
+def forward(
+    p: PyTree,
+    cfg: ArchConfig,
+    batch: Dict[str, torch.Tensor],
+    attn_impl: str = "torch",
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Training / prefill forward pass.  Returns (logits, aux)."""
+    _check_family(cfg)
+    x = embed_inputs(p, cfg, batch)
+    positions = torch.arange(x.shape[1], device=x.device)
+    for i in range(cfg.n_layers):
+        x = apply_block(layer_params(p["layers"], i), x, cfg, positions, attn_impl)
+    x = apply_norm(p["final_norm"], x, cfg)
+    return logits_from_hidden(p, cfg, x), {}
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int, device) -> PyTree:
+    K, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    dtype = _torch_dtype(cfg.activation_dtype)
+    cache_len = max_len
+    if cfg.sliding_window is not None:
+        cache_len = min(max_len, cfg.sliding_window)
+    shape = (cfg.n_layers, batch, cache_len, K, hd)
+    return {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+    }
+
+
+def decode_step(
+    p: PyTree,
+    cfg: ArchConfig,
+    cache: PyTree,
+    batch: Dict[str, torch.Tensor],  # tokens: (B, 1)
+    position: int,  # current write index
+) -> Tuple[torch.Tensor, PyTree]:
+    """One token of autoregressive decoding with a per-layer KV cache.
+
+    The cache is updated in place and returned (JAX returns a new one); a
+    full-width cache is the largest buffer of a serving run after the
+    weights, and a copy per token would double it.
+    """
+    _check_family(cfg)
+    x = embed_inputs(p, cfg, batch)
+    if cfg.sliding_window is not None:
+        write_pos = position % cache["k"].shape[2]  # ring buffer
+    else:
+        write_pos = position
+    for i in range(cfg.n_layers):
+        layer_cache = {"k": cache["k"][i], "v": cache["v"][i]}
+        x = apply_block_decode(
+            layer_params(p["layers"], i), x, cfg, layer_cache, position, write_pos
+        )
+    x = apply_norm(p["final_norm"], x, cfg)
+    return logits_from_hidden(p, cfg, x), cache

@@ -1,0 +1,5 @@
+"""Step builders of the port (serving steps so far)."""
+
+from .steps import make_decode_step, make_prefill_step
+
+__all__ = ["make_decode_step", "make_prefill_step"]
