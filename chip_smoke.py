@@ -7,19 +7,28 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. Print the card's name and power limit (nvidia-smi), build every CUDA
    kernel of the port from the sources in this checkout, print the build time.
-2. Hold each kernel against its plain PyTorch version on the card: the flash
-   attention sweep of the JAX package's kernel tests (MHA, GQA 2:1 and 4:1,
-   MQA; windows 32/96/1024; blocks 128/32; float32 at 2e-4 and bfloat16 at
-   2e-2), then granite-3-8b's prefill shape, where the kernel, the plain
-   version and PyTorch's fused attention are timed with CUDA events.
-3. Serve granite-3-8b at full width and depth with random weights (seeded
-   on the card): 8 requests, 512-token prompts, 32 generated tokens.  The
-   flash kernel must launch once per layer in that run, the prefill and the
+2. Hold each kernel against its plain PyTorch version on the card, float32
+   at 2e-4 and bfloat16 at 2e-2: the flash attention sweep of the JAX
+   package's kernel tests (MHA, GQA 2:1 and 4:1, MQA; windows 32/96/1024;
+   blocks 128/32) plus head dim 80; the SSD and RWKV6 sweeps of the same
+   tests and RWKV6's strong-decay case.  Then each kernel is checked and
+   timed with CUDA events at the shape its serve path gives it (granite-3-8b
+   and zamba2-2.7b attention, zamba2's SSD, rwkv6-3b's WKV), beside its
+   plain version, PyTorch's fused attention for flash, and its bound.  At
+   those shapes the scans are held elementwise against their plain version
+   run in float64, with the float32 plain version's own error printed
+   beside them.
+3. Serve granite-3-8b, zamba2-2.7b and rwkv6-3b at full width and depth with
+   random weights (seeded on the card): 8 requests, 512-token prompts, 32
+   generated tokens each.  Every launch count is set to 0 before each run
+   and must be exact after it (flash once per attention block, SSD once per
+   Mamba2 layer, RWKV6 once per layer), the prompt forward and the
    teacher-forced decode must agree, and every generated id must lie below
    the vocabulary size.
-4. Profile the serving loop (teacher-forced prefill and greedy decode) at
-   full width with torch.profiler: wall and device-busy time per decode
-   step, the device's idle share and the kernels that take the most time.
+4. Profile each family's prompt forward through the kernels and its serving
+   loop (teacher-forced prefill and greedy decode) at full width with
+   torch.profiler: device busy time, the device's idle share and the kernels
+   that take the most time.
 
 The line before the last is a JSON object with each kernel's launches on the
 main path, error, times and bound; the last line names the device.  With no
@@ -40,6 +49,7 @@ REPO = Path(__file__).resolve().parent
 # H100 SXM peaks (NVIDIA data sheet; dense, no sparsity) for the bound.
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
+F32_FLOPS = 67e12  # float32 outside the tensor cores
 
 FLASH_SWEEP = [  # (B, S, H, K, hd, blk_q, blk_k, window), tests/test_kernels.py
     (1, 128, 4, 4, 32, 64, 64, None),  # MHA
@@ -49,12 +59,31 @@ FLASH_SWEEP = [  # (B, S, H, K, hd, blk_q, blk_k, window), tests/test_kernels.py
 ]
 FLASH_WINDOWS = [(1, 256, 4, 2, 32, 64, 64, w) for w in (32, 96, 1024)]
 FLASH_ASYMMETRIC = [(1, 256, 2, 2, 32, 128, 32, None)]
+FLASH_HD80 = [(1, 128, 4, 4, 80, 64, 64, None), (2, 256, 8, 8, 80, 128, 128, None)]
 GRANITE_ATTN = (8, 512, 32, 8, 128, 128, 128, None)  # prefill of the serve phase
+ZAMBA_ATTN = (8, 512, 32, 32, 80, 128, 128, None)  # zamba2's shared block
 
-SERVE_ARGS = [
-    "--arch", "granite-3-8b", "--no-reduced", "--requests", "8",
-    "--prompt-len", "512", "--gen-len", "32", "--seed", "0", "--device", "cuda",
+SSD_SWEEP = [  # (B, S, H, P, G, N, chunk), tests/test_kernels.py:110-118
+    (1, 64, 2, 16, 1, 8, 16),
+    (2, 128, 4, 16, 2, 8, 32),
+    (1, 128, 4, 32, 1, 16, 64),
+    (1, 256, 8, 16, 4, 8, 32),
 ]
+ZAMBA_SSD = (8, 512, 80, 64, 1, 64, 128)  # zamba2-2.7b's prompt forward, per layer
+RWKV6_SWEEP = [  # (B, S, H, P, chunk), tests/test_kernels.py:74-77
+    (1, 64, 2, 16, 16), (2, 128, 3, 16, 32), (1, 96, 1, 32, 32), (1, 32, 2, 8, 32),
+]
+RWKV6_STRONG = (1, 128, 2, 16, 32)  # with logw = -5, tests/test_kernels.py:92-104
+RWKV6_SERVE = (8, 512, 40, 64, 32)  # rwkv6-3b's prompt forward, per layer
+
+SERVE_ARCHS = ["granite-3-8b", "zamba2-2.7b", "rwkv6-3b"]
+
+
+def serve_args(arch: str):
+    return [
+        "--arch", arch, "--no-reduced", "--requests", "8",
+        "--prompt-len", "512", "--gen-len", "32", "--seed", "0", "--device", "cuda",
+    ]
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -89,19 +118,11 @@ def check_flash(case, dtype, gen, tol):
     _, _, _, _, _, blk_q, blk_k, window = case
     q, k, v = flash_inputs(case, dtype, gen)
     out = ops.flash_attention(q, k, v, causal=True, window=window, blk_q=blk_q, blk_k=blk_k)
-    torch.cuda.synchronize()
     want = ref.attention_reference(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=True, window=window
     ).transpose(1, 2)
-    err = (out.float() - want.float()).abs()
-    max_err = float(err.max())
-    bad = int((err > tol + tol * want.float().abs()).sum())
-    print(f"  flash {case[:5]} blk {blk_q}/{blk_k} window {window} {str(dtype)[6:]}: "
-          f"max |err| {max_err:.3g} (tol {tol:g})")
-    if bad or not torch.isfinite(out.float()).all():
-        raise RuntimeError(f"flash kernel disagrees with the plain version on {case} {dtype}: "
-                           f"{bad} elements out of tolerance, max |err| {max_err}")
-    return max_err, (q, k, v)
+    label = f"flash {case[:5]} blk {blk_q}/{blk_k} window {window} {str(dtype)[6:]}"
+    return check_close(label, out, want, tol), (q, k, v)
 
 
 def flash_bound_ms(case, dtype_bytes: int):
@@ -116,7 +137,190 @@ def flash_bound_ms(case, dtype_bytes: int):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def profile_serving_loop(cfg, n_prompt: int = 64, n_gen: int = 8, batch: int = 8) -> dict:
+def check_close(label, got, want, tol):
+    """Raise unless ``got`` is finite and within tol + tol * |want| of
+    ``want`` in every element (the JAX kernel tests' assert_allclose);
+    returns max |err|."""
+    import torch
+
+    want = want.double()
+    err = (got.double() - want).abs()
+    max_err = float(err.max())
+    bad = int((err > tol + tol * want.abs()).sum())
+    print(f"  {label}: max |err| {max_err:.3g}, max |want| {float(want.abs().max()):.3g}, "
+          f"mean |want| {float(want.abs().mean()):.3g} (tol {tol:g})")
+    if bad or not torch.isfinite(got.float()).all():
+        raise RuntimeError(f"{label}: kernel disagrees with the plain version: {bad} elements "
+                           f"out of tolerance, max |err| {max_err}")
+    return max_err
+
+
+def ssd_inputs(case, dtype, gen):
+    import torch
+
+    B, S, H, P, G, N = case[:6]
+    rn = lambda *shape: torch.randn(*shape, generator=gen, device="cuda")
+    xh, bm, cm = rn(B, S, H, P).to(dtype), rn(B, S, G, N).to(dtype), rn(B, S, G, N).to(dtype)
+    dt = torch.nn.functional.softplus(rn(B, S, H))
+    A = -torch.exp(rn(H))
+    return xh, dt, A, bm, cm
+
+
+def as_float64(args):
+    return [a.double() for a in args]
+
+
+def ssd_plain(xh, dt, A, bm, cm):
+    """The plain version on the kernel's inputs, in the model layout, in
+    float32 (float64 for float64 inputs)."""
+    from repro_torch.kernels.ssd import ref
+
+    xw = (xh.to(dt.dtype) * dt[..., None]).transpose(1, 2)
+    la = (dt * A).transpose(1, 2)[..., None]
+    y, st = ref.ssd_reference(xw, la, bm.transpose(1, 2), cm.transpose(1, 2))
+    return y.transpose(1, 2), st
+
+
+def check_against(label, got, plain, args, tol, float64=False):
+    """Hold the kernel's outputs ``got`` against the plain version on the
+    same inputs, in float32, or with ``float64`` in float64, beside which the
+    float32 plain version's own error is printed: at a serve shape an output
+    sums hundreds of terms, and float64 shows which of the two float32
+    evaluations rounds further.  Returns max |err|."""
+    wants = plain(*(as_float64(args) if float64 else args))
+    err = 0.0
+    for name, g, w in zip(("out", "state"), got, wants):
+        err = max(err, check_close(f"{label} {name}", g, w, tol))
+    if float64:
+        for name, p, w in zip(("out", "state"), plain(*args), wants):
+            print(f"    float32 plain version {name} vs float64: max |err| "
+                  f"{float((p.double() - w).abs().max()):.3g}")
+    return err
+
+
+def check_ssd(case, dtype, gen, tol, float64=False):
+    from repro_torch.kernels.ssd import ops
+
+    args = ssd_inputs(case, dtype, gen)
+    got = ops.ssd_scan(*args, chunk=case[6])
+    label = f"ssd {case} {str(dtype)[6:]}"
+    return check_against(label, got, ssd_plain, args, tol, float64), args
+
+
+def least_flops_per_step(per_chunk, S: int) -> float:
+    """The least operations per step and head over the chunk lengths Q = 1..S
+    of a chunked scan whose chunk of Q steps costs ``per_chunk(Q)``.  The
+    output does not depend on Q; Q = 1 is the step-by-step recurrence."""
+    return min(per_chunk(Q) / Q for Q in range(1, S + 1))
+
+
+def ssd_bound_ms(case, in_bytes: int):
+    """Least time for the SSD function: x, B, C at their size, dt, A, y and
+    the state once over HBM rate vs the least operations over the peak for
+    the inputs' type.  A chunk of Q steps costs 2 per multiply-add of the
+    causal halves of C B^T and of the score product, of C S and of the state
+    update, and 1 per element of the state's decay (exponentials not
+    counted); at Q = 1 that is the recurrence's 5 N P + 2 (N + P) per step."""
+    B, S, H, P, G, N, _ = case
+    nbytes = (in_bytes * (B * S * H * P + 2 * B * S * G * N) + 4 * (B * S * H + H)
+              + 4 * (B * S * H * P + B * H * N * P))
+    per_chunk = lambda Q: 2 * (Q * (Q + 1) // 2 * (N + P) + 2 * Q * N * P) + N * P
+    flops = least_flops_per_step(per_chunk, S) * B * S * H
+    peak = F32_FLOPS if in_bytes == 4 else BF16_FLOPS
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def rwkv6_inputs(case, dtype, gen, logw=None):
+    import torch
+
+    B, S, H, P = case[:4]
+    rn = lambda *shape: torch.randn(*shape, generator=gen, device="cuda")
+    r, k, v = (rn(B, S, H, P).to(dtype) for _ in range(3))
+    if logw is None:
+        lw = -torch.exp(rn(B, S, H, P) - 1.0)
+    else:
+        lw = torch.full((B, S, H, P), logw, device="cuda")
+    return r, k, v, lw, rn(H, P) * 0.1
+
+
+def rwkv6_plain(r, k, v, lw, u):
+    """The plain version in the model layout, in float32 (float64 for
+    float64 inputs)."""
+    from repro_torch.kernels.rwkv6 import ref
+
+    hm = lambda t: t.transpose(1, 2)
+    out, st = ref.rwkv6_reference(hm(r), hm(k), hm(v), hm(lw), u)
+    return hm(out), st
+
+
+def check_rwkv6(case, dtype, gen, tol, logw=None, float64=False):
+    from repro_torch.kernels.rwkv6 import ops
+
+    args = rwkv6_inputs(case, dtype, gen, logw)
+    got = ops.rwkv6_mix(*args, chunk=case[4])
+    label = f"rwkv6 {case} {str(dtype)[6:]}" + ("" if logw is None else f" logw {logw}")
+    return check_against(label, got, rwkv6_plain, args, tol, float64), args
+
+
+def rwkv6_bound_ms(case, in_bytes: int):
+    """Least time for the WKV function: r, k, v at their size, logw, u, the
+    output and the state once over HBM rate vs the least operations over the
+    peak for the inputs' type.  A chunk of Q steps costs 2 per multiply-add
+    of the two (Q,P)x(P,P) products and of the causal output term, 3 per
+    element of the causal score sum and 1 per element of the state's decay
+    (exponentials not counted); at Q = 1 that is the recurrence's 5 P^2 + 2 P
+    per step."""
+    B, S, H, P, _ = case
+    nbytes = in_bytes * 3 * B * S * H * P + 4 * (2 * B * S * H * P + H * P + B * H * P * P)
+    per_chunk = lambda Q: (2 * (2 * Q * P * P + Q * (Q + 1) // 2 * P)
+                           + 3 * (Q * (Q - 1) // 2) * P + P * P)
+    flops = least_flops_per_step(per_chunk, S) * B * S * H
+    peak = F32_FLOPS if in_bytes == 4 else BF16_FLOPS
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def device_time_by_kernel(prof) -> dict:
+    """Summed device time (us) per kernel name of a torch.profiler run."""
+    import torch
+
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    return by_name
+
+
+def profile_prompt_forward(model, params, prompts) -> dict:
+    """Device busy share of one prompt forward through the kernels, after a
+    warm-up forward; the idle share divides by an untraced forward's wall."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.train import make_prefill_step
+
+    prefill = make_prefill_step(model)
+    prefill(params, {"tokens": prompts})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prefill(params, {"tokens": prompts})
+    torch.cuda.synchronize()
+    wall_us = (time.perf_counter() - t0) * 1e6
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        prefill(params, {"tokens": prompts})
+        torch.cuda.synchronize()
+    by_name = device_time_by_kernel(prof)
+    busy_us = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return {
+        "wall_ms": wall_us / 1e3,
+        "device_busy_ms": busy_us / 1e3,
+        "device_idle_share": 1.0 - busy_us / wall_us,
+        "top_kernels_ms": [(name[:60], us / 1e3) for name, us in top],
+    }
+
+
+def profile_serving_loop(model, params, prompts, n_gen: int = 8) -> dict:
     """Device busy share of the serving loop (teacher-forced prefill, then
     greedy decode) at full width.  The loop runs untraced twice (the first
     run absorbs lazy set-up, the second gives the wall time), then once under
@@ -126,12 +330,8 @@ def profile_serving_loop(cfg, n_prompt: int = 64, n_gen: int = 8, batch: int = 8
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.launch import serve
-    from repro_torch.models import build_model
 
-    model = build_model(cfg)
-    params = model.init(1, device="cuda")
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    prompts = torch.randint(0, cfg.vocab_size, (batch, n_prompt), device="cuda", generator=gen)
+    batch, n_prompt = prompts.shape
 
     def loop():
         cache = model.init_cache(batch, n_prompt + n_gen, device="cuda")
@@ -148,10 +348,7 @@ def profile_serving_loop(cfg, n_prompt: int = 64, n_gen: int = 8, batch: int = 8
             t0 = time.perf_counter()
             loop()
             traced_wall_us = (time.perf_counter() - t0) * 1e6
-    by_name: dict = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    by_name = device_time_by_kernel(prof)
     busy_us = sum(by_name.values())
     steps = n_prompt + n_gen
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
@@ -163,6 +360,114 @@ def profile_serving_loop(cfg, n_prompt: int = 64, n_gen: int = 8, batch: int = 8
         "device_idle_share": 1.0 - busy_us / wall_us,
         "top_kernels_ms_per_step": [(name[:60], us / steps / 1e3) for name, us in top],
     }
+
+
+def phase2_kernels(torch, gen) -> dict:
+    """Phase 2: every kernel against its plain version, then timed at its
+    serve shape.  Returns the per-kernel numbers of the JSON line."""
+    from repro_torch.kernels.attention import ops as flash_ops
+    from repro_torch.kernels.attention import ref as flash_ref
+    from repro_torch.kernels.rwkv6 import ops as rwkv6_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
+
+    out = {}
+    print("phase 2: flash attention kernel vs plain version")
+    for dtype, tol in ((torch.float32, 2e-4), (torch.bfloat16, 2e-2)):
+        for case in FLASH_SWEEP + FLASH_HD80:
+            check_flash(case, dtype, gen, tol)
+    for case in FLASH_WINDOWS + FLASH_ASYMMETRIC:
+        check_flash(case, torch.float32, gen, 2e-4)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for name, case in (("flash_fwd", GRANITE_ATTN), ("flash_fwd hd80", ZAMBA_ATTN)):
+        err, (q, k, v) = check_flash(case, torch.bfloat16, gen, 2e-2)
+        qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        out[name] = dict(
+            max_abs_err=err,
+            ms=cuda_ms(lambda: flash_ops.flash_attention(q, k, v)),
+            plain_ms=cuda_ms(lambda: flash_ref.attention_reference(qh, kh, vh, causal=True)),
+            library_ms=cuda_ms(lambda: sdpa(qh, kh, vh, is_causal=True, enable_gqa=True)),
+        )
+        out[name]["bound_ms"], out[name]["bound_by"] = flash_bound_ms(case, q.element_size())
+        del q, k, v, qh, kh, vh
+
+    print("phase 2: SSD kernel vs plain version")
+    for dtype, tol in ((torch.float32, 2e-4), (torch.bfloat16, 2e-2)):
+        for case in SSD_SWEEP:
+            check_ssd(case, dtype, gen, tol)
+    err, args = check_ssd(ZAMBA_SSD, torch.float32, gen, 2e-4, float64=True)
+    out["ssd_fwd"] = dict(
+        max_abs_err=err,
+        ms=cuda_ms(lambda: ssd_ops.ssd_scan(*args, chunk=ZAMBA_SSD[6])),
+        plain_ms=cuda_ms(lambda: ssd_plain(*args), iters=5, warmup=1),
+        library_ms=None,
+    )
+    out["ssd_fwd"]["bound_ms"], out["ssd_fwd"]["bound_by"] = ssd_bound_ms(ZAMBA_SSD, 4)
+    del args
+
+    print("phase 2: RWKV6 kernel vs plain version")
+    for dtype, tol in ((torch.float32, 2e-4), (torch.bfloat16, 2e-2)):
+        for case in RWKV6_SWEEP:
+            check_rwkv6(case, dtype, gen, tol)
+    check_rwkv6(RWKV6_STRONG, torch.float32, gen, 2e-4, logw=-5.0)
+    err, args = check_rwkv6(RWKV6_SERVE, torch.float32, gen, 2e-4, float64=True)
+    out["rwkv6_fwd"] = dict(
+        max_abs_err=err,
+        ms=cuda_ms(lambda: rwkv6_ops.rwkv6_mix(*args, chunk=RWKV6_SERVE[4])),
+        plain_ms=cuda_ms(lambda: rwkv6_plain(*args), iters=5, warmup=1),
+        library_ms=None,
+    )
+    out["rwkv6_fwd"]["bound_ms"], out["rwkv6_fwd"]["bound_by"] = rwkv6_bound_ms(RWKV6_SERVE, 4)
+    del args
+
+    for name, shape in (("flash_fwd", GRANITE_ATTN[:5]), ("flash_fwd hd80", ZAMBA_ATTN[:5]),
+                        ("ssd_fwd", ZAMBA_SSD), ("rwkv6_fwd", RWKV6_SERVE)):
+        m = out[name]
+        lib = "none" if m["library_ms"] is None else f"{m['library_ms']:.4f} ms"
+        print(f"  {name} at {shape}: kernel {m['ms']:.4f} ms, plain {m['plain_ms']:.4f} ms, "
+              f"library {lib}, bound {m['bound_ms']:.4f} ms ({m['bound_by']})", flush=True)
+    return out
+
+
+def expected_launches(cfg) -> dict:
+    """Kernel launches of one prompt forward through the kernels."""
+    if cfg.family == "hybrid":
+        return {"flash_fwd": cfg.n_layers // cfg.shared_attn_every, "ssd_fwd": cfg.n_layers,
+                "rwkv6_fwd": 0}
+    if cfg.rwkv is not None:
+        return {"flash_fwd": 0, "ssd_fwd": 0, "rwkv6_fwd": cfg.n_layers}
+    return {"flash_fwd": cfg.n_layers, "ssd_fwd": 0, "rwkv6_fwd": 0}
+
+
+def phase3_serve(torch, arch: str, counters: dict) -> dict:
+    """Serve one architecture at full width; returns its launch counts."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve
+
+    cfg = get_arch(arch)
+    print(f"phase 3: serve {cfg.name} at full width: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads}, hd {cfg.resolved_head_dim}, "
+          f"d_ff {cfg.d_ff}, {cfg.param_count() / 1e9:.2f} B parameters", flush=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for mod in counters.values():
+        mod.launches = 0
+    result = serve.main(serve_args(arch))
+    launches = {name: mod.launches for name, mod in counters.items()}
+    want = expected_launches(cfg)
+    if launches != want:
+        raise RuntimeError(f"{arch}: kernel launches {launches} in the serve run, expected {want}")
+    gen_ids = result["tokens"]
+    if gen_ids.shape != (8, 32) or int(gen_ids.max()) >= cfg.vocab_size or int(gen_ids.min()) < 0:
+        raise RuntimeError(f"{arch}: generated ids out of range: shape {gen_ids.shape}")
+    print(f"  {arch}: launches {launches}; prompt forward (kernels) "
+          f"{result['prompt_forward_s'] * 1e3:.1f} ms; teacher-forced prefill "
+          f"{result['prefill_s'] * 1e3:.1f} ms; decode {result['decode_s'] * 1e3:.1f} ms; "
+          f"{result['tokens_per_s']:.1f} tok/s; prefill/decode max |diff| "
+          f"{result['prefill_decode_max_abs_diff']:.4g} (tol {result['prefill_decode_tol']:.4g}); "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
 
 
 def main() -> int:
@@ -182,10 +487,13 @@ def main() -> int:
 
     from repro_torch.configs import get_arch
     from repro_torch.kernels import _build
-    from repro_torch.kernels.attention import ops, ref
-    from repro_torch.launch import serve
+    from repro_torch.kernels.attention import ops as flash_ops
+    from repro_torch.models import build_model
+    from repro_torch.kernels.rwkv6 import ops as rwkv6_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
 
     # -- phase 1: card and build ---------------------------------------------
+    t_phase = time.perf_counter()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -193,73 +501,72 @@ def main() -> int:
     print(smi, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; {torch.cuda.get_device_name(0)}")
     build_s = _build.build_all(verbose=True)
-    print(f"phase 1: built {len(_build.sources())} kernel source(s) in {build_s:.1f} s", flush=True)
+    print(f"phase 1: built {len(_build.sources())} kernel source(s) in {build_s:.1f} s; "
+          f"phase wall {time.perf_counter() - t_phase:.1f} s", flush=True)
 
     # -- phase 2: kernels vs plain versions ------------------------------------
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    print("phase 2: flash attention kernel vs plain version")
-    for dtype, tol in ((torch.float32, 2e-4), (torch.bfloat16, 2e-2)):
-        for case in FLASH_SWEEP:
-            check_flash(case, dtype, gen, tol)
-    for case in FLASH_WINDOWS + FLASH_ASYMMETRIC:
-        check_flash(case, torch.float32, gen, 2e-4)
-    err, (q, k, v) = check_flash(GRANITE_ATTN, torch.bfloat16, gen, 2e-2)
-    kernel_ms = cuda_ms(lambda: ops.flash_attention(q, k, v))
-    qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    plain_ms = cuda_ms(lambda: ref.attention_reference(qh, kh, vh, causal=True))
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    library_ms = cuda_ms(lambda: sdpa(qh, kh, vh, is_causal=True, enable_gqa=True))
-    bound_ms, bound_by = flash_bound_ms(GRANITE_ATTN, q.element_size())
-    print(f"  granite shape {GRANITE_ATTN[:5]} bf16: kernel {kernel_ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})",
-          flush=True)
+    t_phase = time.perf_counter()
+    numbers = phase2_kernels(torch, torch.Generator(device="cuda").manual_seed(0))
+    print(f"phase 2: wall {time.perf_counter() - t_phase:.1f} s", flush=True)
 
     # -- phase 3: full-width serving ---------------------------------------------
-    cfg = get_arch("granite-3-8b")
-    print(f"phase 3: serve {cfg.name} at full width: {cfg.n_layers} layers, d_model "
-          f"{cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads}, hd {cfg.resolved_head_dim}, "
-          f"d_ff {cfg.d_ff}, {cfg.param_count() / 1e9:.2f} B parameters", flush=True)
-    del q, k, v, qh, kh, vh
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    ops.launches = 0
-    result = serve.main(SERVE_ARGS)
-    launches = ops.launches
-    if launches != cfg.n_layers:
-        raise RuntimeError(f"flash kernel launched {launches} times in the serve run, "
-                           f"expected {cfg.n_layers} (one per layer)")
-    gen_ids = result["tokens"]
-    if gen_ids.shape != (8, 32) or int(gen_ids.max()) >= cfg.vocab_size or int(gen_ids.min()) < 0:
-        raise RuntimeError(f"generated ids out of range: shape {gen_ids.shape}")
-    print(f"  flash launches {launches}; prefill (flash) {result['flash_prefill_s'] * 1e3:.1f} ms; "
-          f"teacher-forced prefill {result['prefill_s'] * 1e3:.1f} ms; decode "
-          f"{result['decode_s'] * 1e3:.1f} ms; {result['tokens_per_s']:.1f} tok/s; "
-          f"prefill/decode max |diff| {result['prefill_decode_max_abs_diff']:.4g} "
-          f"(tol {result['prefill_decode_tol']:.4g}); peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    t_phase = time.perf_counter()
+    counters = {"flash_fwd": flash_ops, "ssd_fwd": ssd_ops, "rwkv6_fwd": rwkv6_ops}
+    by_path = {arch: phase3_serve(torch, arch, counters) for arch in SERVE_ARCHS}
+    print(f"phase 3: wall {time.perf_counter() - t_phase:.1f} s", flush=True)
 
-    # -- phase 4: where the serving loop's time goes ----------------------------
-    prof = profile_serving_loop(cfg)
-    print(f"phase 4: serving loop at full width, {prof['steps']} decode steps of 8 requests: "
-          f"{prof['wall_ms_per_step']:.3f} ms/step wall ({prof['traced_wall_ms_per_step']:.3f} "
-          f"traced), {prof['device_busy_ms_per_step']:.3f} ms/step device busy, device idle "
-          f"share {prof['device_idle_share']:.3f}")
-    for name, ms in prof["top_kernels_ms_per_step"]:
-        print(f"  {ms:8.4f} ms/step  {name}")
+    # -- phase 4: where the time goes --------------------------------------------
+    t_phase = time.perf_counter()
+    for arch in SERVE_ARCHS:
+        torch.cuda.empty_cache()
+        cfg = get_arch(arch)
+        params = build_model(cfg).init(1, device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        prompt = lambda n: torch.randint(0, cfg.vocab_size, (8, n), device="cuda", generator=gen)
+        fwd = profile_prompt_forward(
+            build_model(cfg, impl="kernel"), params, prompt(512)
+        )
+        prof = profile_serving_loop(build_model(cfg), params, prompt(64))
+        del params
+        print(f"phase 4: {arch} prompt forward (kernels, 8 x 512 tokens): {fwd['wall_ms']:.3f} ms "
+              f"wall, {fwd['device_busy_ms']:.3f} ms device busy, device idle share "
+              f"{fwd['device_idle_share']:.3f}")
+        for name, ms in fwd["top_kernels_ms"]:
+            print(f"  {ms:8.4f} ms  {name}")
+        print(f"phase 4: {arch} serving loop, {prof['steps']} decode steps of 8 requests: "
+              f"{prof['wall_ms_per_step']:.3f} ms/step wall ({prof['traced_wall_ms_per_step']:.3f} "
+              f"traced), {prof['device_busy_ms_per_step']:.3f} ms/step device busy, device idle "
+              f"share {prof['device_idle_share']:.3f}")
+        for name, ms in prof["top_kernels_ms_per_step"]:
+            print(f"  {ms:8.4f} ms/step  {name}")
+    print(f"phase 4: wall {time.perf_counter() - t_phase:.1f} s", flush=True)
 
-    kernels = [{
-        "name": "flash_fwd",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/attention/csrc/flash_fwd.cu",
-        "replaces": "src/repro/kernels/attention/flash.py:33",
-        "launches": launches,
-        "max_abs_err": err,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        "library_ms": library_ms,
-    }]
+    sources = {
+        "flash_fwd": ("src/repro_torch/kernels/attention/csrc/flash_fwd.cu",
+                      "src/repro/kernels/attention/flash.py:33"),
+        "ssd_fwd": ("src/repro_torch/kernels/ssd/csrc/ssd_fwd.cu",
+                    "src/repro/kernels/ssd/chunked.py:30"),
+        "rwkv6_fwd": ("src/repro_torch/kernels/rwkv6/csrc/rwkv6_fwd.cu",
+                      "src/repro/kernels/rwkv6/chunked.py:34"),
+    }
+    kernels = []
+    for name, (source, replaces) in sources.items():
+        m = numbers[name]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": source,
+            "replaces": replaces,
+            "launches": sum(counts[name] for counts in by_path.values()),
+            "launches_by_path": {arch: counts[name] for arch, counts in by_path.items()
+                                 if counts[name]},
+            "max_abs_err": m["max_abs_err"],
+            "ms": m["ms"],
+            "plain_ms": m["plain_ms"],
+            "bound_ms": m["bound_ms"],
+            "bound_by": m["bound_by"],
+            "library_ms": m["library_ms"],
+        })
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,9 @@
-"""The dense architecture configs the port serves, plus shapes.
+"""The architecture configs the port serves, plus shapes.
 
-Only the dense decoder family is registered here: it is the family that the
-port's transformer runs.  The other families join as their models are ported.
+Registered: the dense decoder family (the port's transformer), the hybrid
+zamba2-2.7b (``models/zamba.py``) and the RWKV family's rwkv6-3b
+(``models/rwkv_lm.py``).  The MoE and modality configs join as their
+models are ported.
 """
 
 import importlib
@@ -23,6 +25,8 @@ _MODULES = [
     "granite_3_8b",
     "command_r_35b",
     "qwen1_5_110b",
+    "rwkv6_3b",
+    "zamba2_2_7b",
     "llama3_70b",
 ]
 

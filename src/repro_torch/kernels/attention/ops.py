@@ -23,7 +23,7 @@ from .ref import attention_reference
 # 0 before it drives the main path).
 launches = 0
 
-SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
+SUPPORTED_HEAD_DIMS = (16, 32, 64, 80, 128)
 MAX_BLK_Q = 128
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 

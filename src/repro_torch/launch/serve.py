@@ -5,7 +5,9 @@ then greedy decode.
       --no-reduced --requests 8 --prompt-len 512 --gen-len 32
 
 The prompts first go through ``make_prefill_step`` on a model built with the
-flash kernel (one launch per layer).  The KV cache is then filled by
+hand-written kernels: flash attention (one launch per attention block) and
+the SSD / RWKV6 scans (one launch per Mamba2 or RWKV6 layer).  The cache
+(KV, SSM or WKV state) is then filled by
 teacher-forced ``decode_step``, exactly as the JAX driver does, and the
 prefill's last-position logits must agree with the decode's last logits
 (the decode == prefill invariant of the JAX tests).  Greedy decode follows.
@@ -106,12 +108,12 @@ def _serve(arch, args, device: torch.device) -> Dict[str, Any]:
     prompts = rng.integers(0, arch.vocab_size, (B, args.prompt_len), dtype=np.int32)
     prompts = torch.from_numpy(prompts).long().to(device)
 
-    # prompt forward through the flash kernel
-    prefill = make_prefill_step(build_model(arch, attn_impl="flash"))
-    with obs_timer("serve.prefill_flash", requests=B, tokens=args.prompt_len) as tm:
+    # prompt forward through the kernels
+    prefill = make_prefill_step(build_model(arch, impl="kernel"))
+    with obs_timer("serve.prefill_kernels", requests=B, tokens=args.prompt_len) as tm:
         prefill_logits = prefill(params, {"tokens": prompts})
         synchronize(device)
-    t_flash = tm.elapsed
+    t_prompt = tm.elapsed
 
     with obs_timer("serve.prefill", requests=B, tokens=args.prompt_len) as tm:
         logits, cache = prefill_by_decode(model, params, cache, prompts)
@@ -133,7 +135,7 @@ def _serve(arch, args, device: torch.device) -> Dict[str, Any]:
     gen = gen.cpu().numpy()
     tps = B * args.gen_len / t_decode
     print(f"arch={arch.name} device={device} requests={B} prompt={args.prompt_len} gen={args.gen_len}")
-    print(f"flash prefill {t_flash*1e3:.1f} ms; teacher-forced prefill {t_prefill*1e3:.1f} ms; "
+    print(f"prompt forward (kernels) {t_prompt*1e3:.1f} ms; teacher-forced prefill {t_prefill*1e3:.1f} ms; "
           f"decode {t_decode*1e3:.1f} ms ({tps:.1f} tok/s aggregate)")
     print(f"prefill/decode last-logit max |diff| {diff:.6g} (tolerance {tol:.6g})")
     print("sample generations (token ids):")
@@ -144,7 +146,7 @@ def _serve(arch, args, device: torch.device) -> Dict[str, Any]:
     return {
         "tokens": gen,
         "tokens_per_s": tps,
-        "flash_prefill_s": t_flash,
+        "prompt_forward_s": t_prompt,
         "prefill_s": t_prefill,
         "decode_s": t_decode,
         "prefill_decode_max_abs_diff": diff,

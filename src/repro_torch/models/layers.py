@@ -43,6 +43,12 @@ def embed_init(gen: torch.Generator, shape, dtype, device) -> torch.Tensor:
     return (x * 0.02).to(dtype)
 
 
+def pad_seq(t: torch.Tensor, pad: int) -> torch.Tensor:
+    """Zero-pad axis 1 (the sequence) of a (B, S, ...) tensor at the end by
+    ``pad`` steps (the chunked scans pad to a whole number of chunks)."""
+    return F.pad(t, [0, 0] * (t.dim() - 2) + [0, pad])
+
+
 # ---------------------------------------------------------------------------
 # Norms (computed in f32, cast back)
 # ---------------------------------------------------------------------------
@@ -291,18 +297,19 @@ def run_attention(
     positions: torch.Tensor,
     impl: str = "torch",
 ) -> torch.Tensor:
-    """Full attention sublayer for train/prefill."""
+    """Full attention sublayer for train/prefill; ``impl="kernel"`` runs
+    the flash kernel."""
     q, k, v = qkv_project(p, x, cfg, positions)
     if cfg.sliding_window is not None and x.shape[1] > cfg.sliding_window:
         ctx = attention_banded(q, k, v, cfg)
-    elif impl == "flash":
+    elif impl == "kernel":
         from repro_torch.kernels.attention import ops as flash_ops
 
         ctx = flash_ops.flash_attention(q, k, v, causal=True, window=cfg.sliding_window)
     elif impl == "torch":
         ctx = attention_torch(q, k, v, cfg)
     else:
-        raise ValueError(f"unknown attention impl {impl!r} (torch | flash)")
+        raise ValueError(f"unknown attention impl {impl!r} (torch | kernel)")
     return attention_output(p, ctx)
 
 

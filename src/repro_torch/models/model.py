@@ -1,9 +1,12 @@
 """Model interface: init / forward / loss / cache / decode (counterpart of
 ``repro.models.model``).
 
-``build_model(cfg)`` returns a :class:`Model` over the dense transformer,
-the one family the port runs so far.  The loss is the full cross-entropy;
-the chunked loss comes with the training slice.
+``build_model(cfg)`` returns a :class:`Model` whose methods dispatch to the
+family's assembly: the dense transformer, the zamba2 hybrid or the RWKV6
+LM.  ``impl`` picks the paths of a full-sequence forward: ``torch`` (plain
+PyTorch) or ``kernel`` (every hand-written kernel the family has: flash
+attention, the SSD and WKV scans); decode always takes the torch paths.  The loss is
+the full cross-entropy; the chunked loss comes with the training slice.
 """
 
 from __future__ import annotations
@@ -15,9 +18,17 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike, resolve_device
-from . import transformer
+from . import rwkv_lm, transformer, zamba
 
 PyTree = Any
+
+
+def _family_module(cfg: ArchConfig):
+    if cfg.family == "ssm" and cfg.rwkv is not None:
+        return rwkv_lm
+    if cfg.family == "hybrid":
+        return zamba
+    return transformer
 
 
 def cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
@@ -32,7 +43,7 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
 @dataclass(frozen=True)
 class Model:
     cfg: ArchConfig
-    attn_impl: str = "torch"  # torch | flash
+    impl: str = "torch"  # torch | kernel
 
     # -- parameters ----------------------------------------------------------
     def init(self, seed: int, device: DeviceLike = "cuda") -> PyTree:
@@ -40,11 +51,11 @@ class Model:
         with ``seed``."""
         dev = resolve_device(device)
         gen = torch.Generator(device=dev).manual_seed(seed)
-        return transformer.init_params(gen, self.cfg, dev)
+        return _family_module(self.cfg).init_params(gen, self.cfg, dev)
 
     # -- forward / loss --------------------------------------------------------
     def forward(self, params: PyTree, batch: Dict[str, torch.Tensor]):
-        return transformer.forward(params, self.cfg, batch, self.attn_impl)
+        return _family_module(self.cfg).forward(params, self.cfg, batch, self.impl)
 
     def loss(self, params: PyTree, batch: Dict[str, torch.Tensor]):
         logits, aux = self.forward(params, batch)
@@ -53,7 +64,7 @@ class Model:
 
     # -- serving ---------------------------------------------------------------
     def init_cache(self, batch: int, max_len: int, device: DeviceLike = "cuda") -> PyTree:
-        return transformer.init_cache(self.cfg, batch, max_len, resolve_device(device))
+        return _family_module(self.cfg).init_cache(self.cfg, batch, max_len, resolve_device(device))
 
     def decode_step(
         self,
@@ -62,8 +73,8 @@ class Model:
         batch: Dict[str, torch.Tensor],
         position: int,
     ):
-        return transformer.decode_step(params, self.cfg, cache, batch, position)
+        return _family_module(self.cfg).decode_step(params, self.cfg, cache, batch, position)
 
 
-def build_model(cfg: ArchConfig, attn_impl: str = "torch") -> Model:
-    return Model(cfg, attn_impl)
+def build_model(cfg: ArchConfig, impl: str = "torch") -> Model:
+    return Model(cfg, impl)

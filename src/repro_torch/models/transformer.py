@@ -49,10 +49,10 @@ def layer_params(layers: PyTree, i: int) -> PyTree:
 # ---------------------------------------------------------------------------
 # Block
 # ---------------------------------------------------------------------------
-def init_layers(gen: torch.Generator, cfg: ArchConfig, device) -> PyTree:
-    """All blocks' parameters, stacked on a leading layer axis."""
+def init_block(gen: torch.Generator, cfg: ArchConfig, device, lead=()) -> PyTree:
+    """One block's parameters, stacked on ``lead`` (``()`` for a single
+    block, as zamba2's shared block)."""
     dtype = _torch_dtype(cfg.param_dtype)
-    lead = (cfg.n_layers,)
     p = {
         "norm_attn": init_norm(cfg, device, lead=lead),
         "attn": init_attention(gen, cfg, dtype, device, lead=lead),
@@ -68,15 +68,15 @@ def apply_block(
     x: torch.Tensor,
     cfg: ArchConfig,
     positions: torch.Tensor,
-    attn_impl: str,
+    impl: str,
 ) -> torch.Tensor:
     if cfg.parallel_block:
         # Command-R style: one pre-norm, attention and MLP in parallel.
         h = apply_norm(p["norm_attn"], x, cfg)
-        attn_out = run_attention(p["attn"], h, cfg, positions, attn_impl)
+        attn_out = run_attention(p["attn"], h, cfg, positions, impl)
         return x + attn_out + apply_mlp(p["mlp"], h, cfg)
     h = apply_norm(p["norm_attn"], x, cfg)
-    x = x + run_attention(p["attn"], h, cfg, positions, attn_impl)
+    x = x + run_attention(p["attn"], h, cfg, positions, impl)
     h = apply_norm(p["norm_mlp"], x, cfg)
     return x + apply_mlp(p["mlp"], h, cfg)
 
@@ -108,7 +108,7 @@ def init_params(gen: torch.Generator, cfg: ArchConfig, device) -> PyTree:
     _check_family(cfg)
     dtype = _torch_dtype(cfg.param_dtype)
     p: Dict[str, PyTree] = {
-        "layers": init_layers(gen, cfg, device),
+        "layers": init_block(gen, cfg, device, lead=(cfg.n_layers,)),
         "final_norm": init_norm(cfg, device),
         "embed": embed_init(gen, (cfg.padded_vocab_size, cfg.d_model), dtype, device),
     }
@@ -131,14 +131,14 @@ def forward(
     p: PyTree,
     cfg: ArchConfig,
     batch: Dict[str, torch.Tensor],
-    attn_impl: str = "torch",
+    impl: str = "torch",
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Training / prefill forward pass.  Returns (logits, aux)."""
     _check_family(cfg)
     x = embed_inputs(p, cfg, batch)
     positions = torch.arange(x.shape[1], device=x.device)
     for i in range(cfg.n_layers):
-        x = apply_block(layer_params(p["layers"], i), x, cfg, positions, attn_impl)
+        x = apply_block(layer_params(p["layers"], i), x, cfg, positions, impl)
     x = apply_norm(p["final_norm"], x, cfg)
     return logits_from_hidden(p, cfg, x), {}
 

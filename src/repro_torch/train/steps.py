@@ -12,8 +12,9 @@ from repro_torch.models.model import Model
 
 def make_prefill_step(model: Model) -> Callable:
     """Prefill: forward over the prompt; returns last-position logits.
-    With ``model.attn_impl == "flash"`` this is the path that runs the flash
-    kernel, once per layer."""
+    With a model built with ``impl="kernel"`` this is the path
+    that runs the hand-written kernels: flash once per attention block, the
+    SSD or RWKV6 scan once per Mamba2 or RWKV6 layer."""
 
     @torch.inference_mode()
     def prefill(params, batch):

@@ -86,5 +86,9 @@ def test_kernel_sources_ship_with_the_package():
     from repro_torch.kernels import _build
 
     names = [p.relative_to(PORT).as_posix() for p in _build.sources()]
-    assert "kernels/attention/csrc/flash_fwd.cu" in names
+    assert names == [
+        "kernels/attention/csrc/flash_fwd.cu",
+        "kernels/rwkv6/csrc/rwkv6_fwd.cu",
+        "kernels/ssd/csrc/ssd_fwd.cu",
+    ]
     assert "repro_torch" in (REPO / "pyproject.toml").read_text()

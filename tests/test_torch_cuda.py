@@ -13,6 +13,10 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.configs import get_arch
 from repro_torch.kernels.attention import ops, ref
+from repro_torch.kernels.rwkv6 import ops as rwkv6_ops
+from repro_torch.kernels.rwkv6 import ref as rwkv6_ref
+from repro_torch.kernels.ssd import ops as ssd_ops
+from repro_torch.kernels.ssd import ref as ssd_ref
 from repro_torch.models import build_model
 
 pytestmark = pytest.mark.cuda
@@ -29,6 +33,22 @@ CASES = [  # (B, S, H, K, hd, blk_q, blk_k, window), the JAX kernel sweep
     (1, 256, 4, 2, 32, 64, 64, 1024),
     (1, 256, 2, 2, 32, 128, 32, None),  # asymmetric blocks
     (2, 12, 4, 2, 64, 128, 128, None),  # blk = S = 12, not a multiple of 8
+    (1, 128, 4, 4, 80, 64, 64, None),  # head dim 80 (zamba2's shared block)
+    (2, 256, 8, 8, 80, 128, 128, None),
+]
+SSD_CASES = [  # (B, S, H, P, G, N, chunk), tests/test_kernels.py:110-118, then zamba2's widths
+    (1, 64, 2, 16, 1, 8, 16),
+    (2, 128, 4, 16, 2, 8, 32),
+    (1, 128, 4, 32, 1, 16, 64),
+    (1, 256, 8, 16, 4, 8, 32),
+    (1, 256, 4, 64, 1, 64, 128),
+]
+RWKV6_CASES = [  # (B, S, H, P, chunk), tests/test_kernels.py:74-77, then rwkv6-3b's widths
+    (1, 64, 2, 16, 16),
+    (2, 128, 3, 16, 32),
+    (1, 96, 1, 32, 32),
+    (1, 32, 2, 8, 32),
+    (1, 128, 4, 64, 32),
 ]
 
 
@@ -76,19 +96,85 @@ def test_flash_kernel_rejects_what_it_does_not_take(cuda):
         ops.flash_attention(q, k.cpu(), v)
 
 
-@pytest.mark.parametrize("name", ["granite-3-8b", "qwen1.5-110b"])
-def test_flash_prefill_matches_torch_path(cuda, name):
-    """The model's forward through the kernel against its plain attention
-    path, in float32 on the card."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", SSD_CASES)
+def test_ssd_kernel_matches_plain_version(cuda, case, dtype):
+    B, S, H, P, G, N, chunk = case
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rn = lambda *shape: torch.randn(*shape, generator=gen, device="cuda")
+    xh, bm, cm = rn(B, S, H, P).to(dtype), rn(B, S, G, N).to(dtype), rn(B, S, G, N).to(dtype)
+    dt = torch.nn.functional.softplus(rn(B, S, H))
+    A = -torch.exp(rn(H))
+    before = ssd_ops.launches
+    y, st = ssd_ops.ssd_scan(xh, dt, A, bm, cm, chunk=chunk)
+    assert ssd_ops.launches == before + 1
+    torch.cuda.synchronize()
+    xw = (xh.float() * dt[..., None]).transpose(1, 2)
+    la = (dt * A).transpose(1, 2)[..., None]
+    y_ref, st_ref = ssd_ref.ssd_reference(xw, la, bm.transpose(1, 2), cm.transpose(1, 2))
+    tol = TOL[dtype]
+    torch.testing.assert_close(y, y_ref.transpose(1, 2), atol=tol, rtol=tol)
+    torch.testing.assert_close(st, st_ref, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("logw", [None, -5.0])  # the sweep's draw; strong decay
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", RWKV6_CASES)
+def test_rwkv6_kernel_matches_plain_version(cuda, case, dtype, logw):
+    B, S, H, P, chunk = case
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    rn = lambda *shape: torch.randn(*shape, generator=gen, device="cuda")
+    r, k, v = (rn(B, S, H, P).to(dtype) for _ in range(3))
+    lw = -torch.exp(rn(B, S, H, P) - 1.0) if logw is None else torch.full((B, S, H, P), logw, device="cuda")
+    u = rn(H, P) * 0.1
+    before = rwkv6_ops.launches
+    out, st = rwkv6_ops.rwkv6_mix(r, k, v, lw, u, chunk=chunk)
+    assert rwkv6_ops.launches == before + 1
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all() and torch.isfinite(st).all()
+    hm = lambda t: t.transpose(1, 2)
+    o_ref, st_ref = rwkv6_ref.rwkv6_reference(hm(r), hm(k), hm(v), hm(lw), u)
+    tol = TOL[dtype]
+    torch.testing.assert_close(out, hm(o_ref), atol=tol, rtol=tol)
+    torch.testing.assert_close(st, st_ref, atol=tol, rtol=tol)
+
+
+def test_scan_kernels_reject_what_they_do_not_take(cuda):
+    z = lambda *shape: torch.zeros(*shape, device="cuda")
+    with pytest.raises(NotImplementedError):  # state dim above 64
+        ssd_ops.ssd_scan(z(1, 64, 2, 16), z(1, 64, 2), z(2), z(1, 64, 1, 128), z(1, 64, 1, 128))
+    with pytest.raises(ValueError, match="packed"):
+        xh = z(1, 2, 64, 16).transpose(1, 2)  # (B, S, H, P) with H not packed
+        ssd_ops.ssd_scan(xh, z(1, 64, 2), z(2), z(1, 64, 1, 8), z(1, 64, 1, 8))
+    with pytest.raises(ValueError, match="contiguous"):
+        r = z(1, 2, 64, 16).transpose(1, 2)
+        rwkv6_ops.rwkv6_mix(r, r.contiguous(), r.contiguous(), r.contiguous(), z(2, 16))
+    with pytest.raises(NotImplementedError):  # head dim above 64
+        r = z(1, 32, 1, 128)
+        rwkv6_ops.rwkv6_mix(r, r, r, r, z(1, 128))
+
+
+@pytest.mark.parametrize("name", ["granite-3-8b", "qwen1.5-110b", "zamba2-2.7b", "rwkv6-3b"])
+def test_kernel_prefill_matches_torch_path(cuda, name):
+    """The model's forward through the kernels against its plain paths, in
+    float32 on the card: flash once per attention block, SSD once per
+    Mamba2 layer, RWKV6 once per layer."""
     cfg = dataclasses.replace(
         get_arch(name).reduced(), param_dtype="float32", activation_dtype="float32"
     )
     params = build_model(cfg).init(0, device=cuda)
     tokens = torch.randint(0, cfg.vocab_size, (2, 64), device=cuda,
                            generator=torch.Generator(device="cuda").manual_seed(1))
-    before = ops.launches
+    counters = (ops, ssd_ops, rwkv6_ops)
+    before = [m.launches for m in counters]
     with torch.inference_mode():
-        flash, _ = build_model(cfg, attn_impl="flash").forward(params, {"tokens": tokens})
+        fast, _ = build_model(cfg, impl="kernel").forward(params, {"tokens": tokens})
         plain, _ = build_model(cfg).forward(params, {"tokens": tokens})
-    assert ops.launches == before + cfg.n_layers
-    torch.testing.assert_close(flash, plain, atol=2e-4, rtol=2e-4)
+    if cfg.family == "hybrid":
+        want = [cfg.n_layers // cfg.shared_attn_every, cfg.n_layers, 0]
+    elif cfg.rwkv is not None:
+        want = [0, 0, cfg.n_layers]
+    else:
+        want = [cfg.n_layers, 0, 0]
+    assert [m.launches - b for m, b in zip(counters, before)] == want
+    torch.testing.assert_close(fast, plain, atol=2e-4, rtol=2e-4)

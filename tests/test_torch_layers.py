@@ -125,7 +125,7 @@ def test_run_attention_flash_matches_pallas_interpret(name):
         jax.tree.map(jnp.asarray, p), jnp.asarray(x), jcfg, jnp.asarray(pos), impl="pallas_interpret"
     )
     tp, tx, tpos = to_torch(p), torch.from_numpy(x), torch.from_numpy(pos)
-    assert_close(tl.run_attention(tp, tx, tcfg, tpos, impl="flash"), want)
+    assert_close(tl.run_attention(tp, tx, tcfg, tpos, impl="kernel"), want)
     assert_close(tl.run_attention(tp, tx, tcfg, tpos, impl="torch"), want)
 
 

@@ -56,7 +56,7 @@ def test_forward_bf16_matches_jax():
     want, _ = jax.jit(jmodel.forward)(jparams, {"tokens": jnp.asarray(tokens)})
     params = to_torch(jparams)
     assert params["embed"].dtype == torch.bfloat16
-    got, _ = build_model(tcfg, attn_impl="flash").forward(
+    got, _ = build_model(tcfg, impl="kernel").forward(
         params, {"tokens": torch.from_numpy(tokens).long()}
     )
     assert got.dtype == torch.bfloat16
@@ -84,15 +84,15 @@ def test_decode_step_matches_jax_step_by_step(name, window):
         assert_close(cache["v"], jcache["v"], F32_TOL)
 
 
-@pytest.mark.parametrize("impl", ["torch", "flash"])
+@pytest.mark.parametrize("attention", ["torch", "flash"])
 @pytest.mark.parametrize("name", ["granite-3-8b", "nemotron-4-340b"])
-def test_decode_matches_prefill(name, impl):
+def test_decode_matches_prefill(name, attention):
     """Teacher-forced decode reproduces the full-sequence logits (the JAX
     invariant of test_arch_smoke.py, same bound)."""
     jcfg, tcfg = f32_pair(name)
     _, jparams, tokens = _setup(jcfg, seed=3)
     params = to_torch(jparams)
-    model = build_model(tcfg, attn_impl=impl)
+    model = build_model(tcfg, impl="kernel" if attention == "flash" else "torch")
     t_tokens = torch.from_numpy(tokens).long()
     full, _ = model.forward(params, {"tokens": t_tokens})
     cache = model.init_cache(B, S, device="cpu")
