@@ -6,25 +6,32 @@
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. Print the card's name and power limit (nvidia-smi), build every CUDA
-   kernel of the port from the sources in this checkout, print the build time.
+   kernel of the port from the sources in this checkout (``nvcc -Xptxas
+   -v``), print the build time and each kernel's registers and spills.
 2. Hold each kernel against its plain PyTorch version on the card, float32
-   at 2e-4 and bfloat16 at 2e-2: the flash attention sweep of the JAX
-   package's kernel tests (MHA, GQA 2:1 and 4:1, MQA; windows 32/96/1024;
-   blocks 128/32) plus head dim 80; the SSD and RWKV6 sweeps of the same
-   tests and RWKV6's strong-decay case.  Then each kernel is checked and
-   timed with CUDA events at the shape its serve path gives it (granite-3-8b
-   and zamba2-2.7b attention, zamba2's SSD, rwkv6-3b's WKV), beside its
-   plain version, PyTorch's fused attention for flash, and its bound.  At
-   those shapes the scans are held elementwise against their plain version
-   run in float64, with the float32 plain version's own error printed
-   beside them.
+   at 2e-4 and bfloat16 at 2e-2.  Flash attention runs two kernels, chosen
+   by dtype: bf16 goes to the tensor-core kernel (flash_fwd_sm90.cu, whose
+   registers, shared memory and spills are printed here), float32 to the
+   CUDA-core kernel (flash_fwd.cu); both run the sweep of the JAX package's
+   kernel tests (MHA, GQA 2:1 and 4:1, MQA; windows 32/96/1024; blocks
+   128/32; S = 12) plus head dim 80, and bf16 also head dim 192.  Then the
+   SSD and RWKV6 sweeps of the same tests and RWKV6's strong-decay case.
+   Each kernel is checked and timed at the shape its serve path gives it
+   (granite-3-8b and zamba2-2.7b attention, zamba2's SSD, rwkv6-3b's WKV),
+   beside its plain version, PyTorch's fused attention for flash, and its
+   bound; the flash kernel and PyTorch's attention both eagerly (CUDA events
+   over 20 calls) and by replaying a CUDA graph of 20 captured calls, which
+   leaves out the host's cost of each call; the float32 flash kernel is
+   timed at granite's shape too.  At their serve shapes the scans are held
+   elementwise against their plain version run in float64, with the float32
+   plain version's own error printed beside them.
 3. Serve granite-3-8b, zamba2-2.7b and rwkv6-3b at full width and depth with
    random weights (seeded on the card): 8 requests, 512-token prompts, 32
    generated tokens each.  Every launch count is set to 0 before each run
    and must be exact after it (flash once per attention block, SSD once per
-   Mamba2 layer, RWKV6 once per layer), the prompt forward and the
-   teacher-forced decode must agree, and every generated id must lie below
-   the vocabulary size.
+   Mamba2 layer, RWKV6 once per layer; every flash launch on the bf16
+   tensor-core kernel), the prompt forward and the teacher-forced decode
+   must agree, and every generated id must lie below the vocabulary size.
 4. Profile each family's prompt forward through the kernels and its serving
    loop (teacher-forced prefill and greedy decode) at full width with
    torch.profiler: device busy time, the device's idle share and the kernels
@@ -38,7 +45,9 @@ and exits non-zero.
 
 from __future__ import annotations
 
+import ctypes
 import json
+import re
 import subprocess
 import sys
 import time
@@ -59,7 +68,9 @@ FLASH_SWEEP = [  # (B, S, H, K, hd, blk_q, blk_k, window), tests/test_kernels.py
 ]
 FLASH_WINDOWS = [(1, 256, 4, 2, 32, 64, 64, w) for w in (32, 96, 1024)]
 FLASH_ASYMMETRIC = [(1, 256, 2, 2, 32, 128, 32, None)]
+FLASH_RAGGED = [(2, 12, 4, 2, 64, 128, 128, None)]  # blk = S = 12, not a multiple of 8
 FLASH_HD80 = [(1, 128, 4, 4, 80, 64, 64, None), (2, 256, 8, 8, 80, 128, 128, None)]
+FLASH_HD192 = [(1, 256, 8, 2, 192, 128, 128, None), (1, 384, 4, 2, 192, 128, 128, 100)]  # bf16 only
 GRANITE_ATTN = (8, 512, 32, 8, 128, 128, 128, None)  # prefill of the serve phase
 ZAMBA_ATTN = (8, 512, 32, 32, 80, 128, 128, None)  # zamba2's shared block
 
@@ -102,6 +113,73 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, n: int = 20, replays: int = 10) -> float:
+    """Time per call of ``fn`` from replaying a CUDA graph of ``n`` captured
+    calls: the host's cost of each call (argument checks, ctypes, tensor-map
+    encoding) is left out, as a serving loop under a graph would leave it."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (n * replays)
+
+
+def kernel_name(mangled: str) -> str:
+    """``flash_fwd_sm90_kernel<128>``, ``ssd_fwd_kernel<float>`` and the like
+    from a mangled kernel name (a length-prefixed name ending in
+    ``_kernel``, then its template arguments up to ``EE``)."""
+    for m in re.finditer(r"\d+", mangled):
+        for start in range(m.start(), m.end()):  # a hash's digits may run into the prefix
+            name = mangled[m.end():m.end() + int(mangled[start:m.end()])]
+            if name.endswith("_kernel") and mangled[m.end() + len(name):].startswith("I"):
+                break
+        else:
+            continue
+        args = mangled[m.end() + len(name) + 1:].split("EE", 1)[0]
+        args = re.sub(r"Li(\d+)E?", r",\1", args).replace("13__nv_bfloat16", ",bf16")
+        args = re.sub(r"(^|,)f(?=,|$)", r"\1float", args)
+        return f"{name}<{args.strip(',')}>"
+    return mangled
+
+
+def ptxas_summary(log: str):
+    """Per kernel of an ``nvcc -Xptxas -v`` log: (kernel, registers, spill
+    stores, spill loads, static shared memory bytes)."""
+    rows, fn, spills = [], None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            fn = kernel_name(m.group(1))
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
+        if m and fn:
+            rows.append((fn, int(m.group(1)), *spills, int(m.group(2) or 0)))
+            fn, spills = None, (0, 0)
+    return rows
+
+
 def flash_inputs(case, dtype, gen):
     import torch
 
@@ -117,7 +195,10 @@ def check_flash(case, dtype, gen, tol):
 
     _, _, _, _, _, blk_q, blk_k, window = case
     q, k, v = flash_inputs(case, dtype, gen)
+    before = ops.tensor_core_launches
     out = ops.flash_attention(q, k, v, causal=True, window=window, blk_q=blk_q, blk_k=blk_k)
+    if ops.tensor_core_launches - before != int(dtype == torch.bfloat16):
+        raise RuntimeError(f"flash {case} {dtype}: launched the wrong kernel for its dtype")
     want = ref.attention_reference(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=True, window=window
     ).transpose(1, 2)
@@ -362,33 +443,63 @@ def profile_serving_loop(model, params, prompts, n_gen: int = 8) -> dict:
     }
 
 
-def phase2_kernels(torch, gen) -> dict:
+def phase2_kernels(torch, gen, build_logs: dict) -> dict:
     """Phase 2: every kernel against its plain version, then timed at its
-    serve shape.  Returns the per-kernel numbers of the JSON line."""
+    serve shape.  ``build_logs`` is phase 1's compiler output by source.
+    Returns the per-kernel numbers of the JSON line."""
     from repro_torch.kernels.attention import ops as flash_ops
     from repro_torch.kernels.attention import ref as flash_ref
     from repro_torch.kernels.rwkv6 import ops as rwkv6_ops
     from repro_torch.kernels.ssd import ops as ssd_ops
 
     out = {}
-    print("phase 2: flash attention kernel vs plain version")
+    print("phase 2: flash attention, bf16 tensor-core kernel (flash_fwd_sm90.cu): nvcc -Xptxas -v")
+    smem_bytes = flash_ops._kernel("flash_fwd_sm90").flash_fwd_sm90_smem_bytes
+    smem_bytes.argtypes, smem_bytes.restype = [ctypes.c_int], ctypes.c_int
+    summary = ptxas_summary(build_logs.get("flash_fwd_sm90", ""))
+    if not summary:
+        print("  (no compiler output: the library was built before this run)")
+    for fn, regs, spill_st, spill_ld, smem in summary:
+        hd = int(fn.rsplit("<", 1)[1][:-1])
+        print(f"  {fn}: {regs} registers at launch (setmaxnreg: 232 per consumer thread, 40 per "
+              f"producer thread), {spill_st} / {spill_ld} bytes spill stores / loads, "
+              f"{smem} B static + {smem_bytes(hd)} B dynamic shared memory")
+        if spill_st or spill_ld:
+            raise RuntimeError(f"{fn} spills registers")
+    for line in build_logs.get("flash_fwd_sm90", "").splitlines():
+        if "Performance Loss" in line:
+            print("  ptxas:", line.strip()[:160])
+    print("phase 2: flash attention kernels vs plain version (bf16: tensor-core kernel, "
+          "float32: CUDA-core kernel)")
     for dtype, tol in ((torch.float32, 2e-4), (torch.bfloat16, 2e-2)):
-        for case in FLASH_SWEEP + FLASH_HD80:
+        for case in FLASH_SWEEP + FLASH_WINDOWS + FLASH_ASYMMETRIC + FLASH_RAGGED + FLASH_HD80:
             check_flash(case, dtype, gen, tol)
-    for case in FLASH_WINDOWS + FLASH_ASYMMETRIC:
-        check_flash(case, torch.float32, gen, 2e-4)
+    for case in FLASH_HD192:
+        check_flash(case, torch.bfloat16, gen, 2e-2)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     for name, case in (("flash_fwd", GRANITE_ATTN), ("flash_fwd hd80", ZAMBA_ATTN)):
         err, (q, k, v) = check_flash(case, torch.bfloat16, gen, 2e-2)
         qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        kernel = lambda: flash_ops.flash_attention(q, k, v)
+        library = lambda: sdpa(qh, kh, vh, is_causal=True, enable_gqa=True)
         out[name] = dict(
             max_abs_err=err,
-            ms=cuda_ms(lambda: flash_ops.flash_attention(q, k, v)),
+            ms=graph_ms(kernel),
+            ms_eager=cuda_ms(kernel),
             plain_ms=cuda_ms(lambda: flash_ref.attention_reference(qh, kh, vh, causal=True)),
-            library_ms=cuda_ms(lambda: sdpa(qh, kh, vh, is_causal=True, enable_gqa=True)),
+            library_ms=graph_ms(library),
+            library_ms_eager=cuda_ms(library),
         )
         out[name]["bound_ms"], out[name]["bound_by"] = flash_bound_ms(case, q.element_size())
         del q, k, v, qh, kh, vh
+    out["flash_fwd"]["at_zamba2_hd80"] = out["flash_fwd hd80"]
+    q, k, v = flash_inputs(GRANITE_ATTN, torch.float32, gen)
+    f32 = lambda: flash_ops.flash_attention(q, k, v)
+    f32_ms, f32_eager = graph_ms(f32, replays=3), cuda_ms(f32)
+    print(f"  flash_fwd float32 (CUDA-core kernel, flash_fwd.cu) at {GRANITE_ATTN[:5]}: "
+          f"{f32_ms:.4f} ms graph-replayed, {f32_eager:.4f} ms eager, bound "
+          f"{flash_bound_ms(GRANITE_ATTN, 4)[0]:.4f} ms", flush=True)
+    del q, k, v
 
     print("phase 2: SSD kernel vs plain version")
     for dtype, tol in ((torch.float32, 2e-4), (torch.bfloat16, 2e-2)):
@@ -422,9 +533,15 @@ def phase2_kernels(torch, gen) -> dict:
     for name, shape in (("flash_fwd", GRANITE_ATTN[:5]), ("flash_fwd hd80", ZAMBA_ATTN[:5]),
                         ("ssd_fwd", ZAMBA_SSD), ("rwkv6_fwd", RWKV6_SERVE)):
         m = out[name]
-        lib = "none" if m["library_ms"] is None else f"{m['library_ms']:.4f} ms"
-        print(f"  {name} at {shape}: kernel {m['ms']:.4f} ms, plain {m['plain_ms']:.4f} ms, "
-              f"library {lib}, bound {m['bound_ms']:.4f} ms ({m['bound_by']})", flush=True)
+        if "ms_eager" in m:
+            times = (f"kernel {m['ms']:.4f} ms graph-replayed / {m['ms_eager']:.4f} ms eager, "
+                     f"plain {m['plain_ms']:.4f} ms, library {m['library_ms']:.4f} ms "
+                     f"graph-replayed / {m['library_ms_eager']:.4f} ms eager")
+        else:
+            lib_ms = "none" if m["library_ms"] is None else f"{m['library_ms']:.4f} ms"
+            times = f"kernel {m['ms']:.4f} ms, plain {m['plain_ms']:.4f} ms, library {lib_ms}"
+        print(f"  {name} at {shape}: {times}, bound {m['bound_ms']:.4f} ms ({m['bound_by']})",
+              flush=True)
     return out
 
 
@@ -452,11 +569,15 @@ def phase3_serve(torch, arch: str, counters: dict) -> dict:
     t0 = time.perf_counter()
     for mod in counters.values():
         mod.launches = 0
+    counters["flash_fwd"].tensor_core_launches = 0
     result = serve.main(serve_args(arch))
     launches = {name: mod.launches for name, mod in counters.items()}
     want = expected_launches(cfg)
     if launches != want:
         raise RuntimeError(f"{arch}: kernel launches {launches} in the serve run, expected {want}")
+    if counters["flash_fwd"].tensor_core_launches != launches["flash_fwd"]:
+        raise RuntimeError(f"{arch}: {counters['flash_fwd'].tensor_core_launches} of "
+                           f"{launches['flash_fwd']} flash launches on the bf16 tensor-core kernel")
     gen_ids = result["tokens"]
     if gen_ids.shape != (8, 32) or int(gen_ids.max()) >= cfg.vocab_size or int(gen_ids.min()) < 0:
         raise RuntimeError(f"{arch}: generated ids out of range: shape {gen_ids.shape}")
@@ -500,13 +621,17 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; {torch.cuda.get_device_name(0)}")
-    build_s = _build.build_all(verbose=True)
+    build_s, build_logs = _build.build_all(verbose=True)
+    for stem, log in sorted(build_logs.items()):
+        for fn, regs, spill_st, spill_ld, smem in ptxas_summary(log):
+            print(f"  [nvcc {stem}.cu] {fn}: {regs} registers, {spill_st} / {spill_ld} bytes "
+                  f"spill stores / loads, {smem} B static shared memory")
     print(f"phase 1: built {len(_build.sources())} kernel source(s) in {build_s:.1f} s; "
           f"phase wall {time.perf_counter() - t_phase:.1f} s", flush=True)
 
     # -- phase 2: kernels vs plain versions ------------------------------------
     t_phase = time.perf_counter()
-    numbers = phase2_kernels(torch, torch.Generator(device="cuda").manual_seed(0))
+    numbers = phase2_kernels(torch, torch.Generator(device="cuda").manual_seed(0), build_logs)
     print(f"phase 2: wall {time.perf_counter() - t_phase:.1f} s", flush=True)
 
     # -- phase 3: full-width serving ---------------------------------------------
@@ -542,7 +667,7 @@ def main() -> int:
     print(f"phase 4: wall {time.perf_counter() - t_phase:.1f} s", flush=True)
 
     sources = {
-        "flash_fwd": ("src/repro_torch/kernels/attention/csrc/flash_fwd.cu",
+        "flash_fwd": ("src/repro_torch/kernels/attention/csrc/flash_fwd_sm90.cu",
                       "src/repro/kernels/attention/flash.py:33"),
         "ssd_fwd": ("src/repro_torch/kernels/ssd/csrc/ssd_fwd.cu",
                     "src/repro/kernels/ssd/chunked.py:30"),
@@ -566,6 +691,8 @@ def main() -> int:
             "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"],
             "library_ms": m["library_ms"],
+            **{key: m[key] for key in ("ms_eager", "library_ms_eager", "at_zamba2_hd80")
+               if key in m},
         })
     print(smi)
     print(json.dumps({"kernels": kernels}))

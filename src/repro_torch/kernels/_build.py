@@ -17,7 +17,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 KERNELS_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNELS_DIR.parents[2] / "build" / "repro_torch_kernels"
@@ -62,12 +62,14 @@ def _stale(src: Path) -> bool:
     return lib.stat().st_mtime < newest
 
 
-def build_all(verbose: bool = False) -> float:
+def build_all(verbose: bool = False) -> Tuple[float, Dict[str, str]]:
     """Compile every stale source, all in parallel; returns the seconds
-    spent.  Raises with the compiler's output if a build fails."""
+    spent and the compiler's output by source stem (with ``verbose``, nvcc
+    runs with ``-Xptxas -v``: each kernel's registers, spills and static
+    shared memory).  Raises with the compiler's output if a build fails."""
     stale = [s for s in sources() if _stale(s)]
     if not stale:
-        return 0.0
+        return 0.0, {}
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
@@ -79,18 +81,17 @@ def build_all(verbose: bool = False) -> float:
                "-o", str(tmp), str(src)]
         procs.append((src, out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    failures = []
+    failures, logs = [], {}
     for src, out, tmp, proc in procs:
         log, _ = proc.communicate()
         if proc.returncode != 0:
             failures.append(f"nvcc failed on {src.name} (exit {proc.returncode}):\n{log}")
             continue
-        if verbose and log:
-            print(f"[nvcc {src.name}]\n{log}")
+        logs[src.stem] = log
         os.replace(tmp, out)
     if failures:
         raise RuntimeError("\n".join(failures))
-    return time.perf_counter() - t0
+    return time.perf_counter() - t0, logs
 
 
 def library(stem: str) -> ctypes.CDLL:

@@ -1,4 +1,5 @@
-// Flash-attention forward for Hopper (sm_90a), causal / sliding-window GQA.
+// Flash-attention forward for Hopper (sm_90a), causal / sliding-window GQA:
+// the float32 path, on the CUDA cores.
 //
 // Replaces the Pallas TPU kernel `_flash_kernel` in
 // src/repro/kernels/attention/flash.py (launched by `flash_attention_hmajor`,
@@ -13,11 +14,12 @@
 // repetition of K or V.
 //
 // Layout: the model's (B, S, heads, hd), contiguous, so no transposes are
-// needed around the launch.  Types: float32 or bfloat16 in, the same out.
-// Head dims 16, 32, 64, 80 (zamba2-2.7b) and 128.  At hd 80 a lane keeps
-// NC = 3 output columns (the third guarded by d < HD), a row stages as 10
-// bf16 or 20 float32 16-byte vectors, and `-Xptxas -v` reports 220
-// registers (bf16) and 230 (float32), no spills, on sm_90a.
+// needed around the launch.  Types: float32 in and out, in float32 FMAs,
+// which hold the float32 tolerance that bf16 or TF32 products cannot; bf16
+// inputs go to the tensor-core kernel in flash_fwd_sm90.cu.  Head dims 16, 32, 64, 80 (zamba2-2.7b)
+// and 128.  At hd 80 a lane keeps NC = 3 output columns (the third guarded
+// by d < HD), a row stages as 20 float32 16-byte vectors, and `-Xptxas -v`
+// reports 230 registers, no spills, on sm_90a.
 //
 // Design.  The TPU kernel's grid (B, H, S/blk_q, S/blk_k) carries the
 // softmax state across its sequential last grid axis in VMEM scratch.
@@ -33,20 +35,19 @@
 // the end), and the P.V product reads P back from a per-warp shared tile
 // while each lane accumulates hd/32 output columns in registers.  All
 // arithmetic is float32 FMA on the CUDA cores: simple and exact enough for
-// the float32 tolerance; tensor cores (mma.sync / wgmma) and TMA are left
-// for a later change.
+// the float32 tolerance.
 //
-// Bound on an H100 SXM (3.35 TB/s HBM, 989 TFLOP/s dense bf16).  For the
-// granite-3-8b prefill (B=8, S=512, H=32, K=8, hd=128, bf16) the function
-// must move q, k, v and o once: 84 MB, 25 us; and do 4*hd per live (q, k)
-// pair, about 2*B*H*S^2*hd = 17.2 GFLOP causal, 17 us at the bf16 tensor
-// rate.  So it is bound by bytes at the card's peak, and by operations for
-// this design, which runs on the 67 TFLOP/s float32 CUDA cores and reads
+// Bound on an H100 SXM (3.35 TB/s HBM, 989 TFLOP/s dense bf16).  At the
+// granite-3-8b prefill shape (B=8, S=512, H=32, K=8, hd=128) in float32 the
+// function must move q, k, v and o once: 168 MB, 50 us; and do 4*hd per
+// live (q, k) pair, about 2*B*H*S^2*hd = 17.2 GFLOP causal, 17 us at the
+// bf16 tensor rate.  So it is bound by bytes at the card's peak, and by
+// operations for this design, which runs on the 67 TFLOP/s float32 CUDA
+// cores and reads
 // shared memory about once per four FMAs.  What the design does about it:
 // it skips dead blocks (half the work at causal), reads each q tile once and
 // each K/V tile once per q block, and never materialises the S x S scores.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -61,26 +62,13 @@ constexpr float NEG_INF = -1e30f;
 
 template <typename T> struct Vec;                // elements in 16 bytes
 template <> struct Vec<float> { static constexpr int N = 4; };
-template <> struct Vec<__nv_bfloat16> { static constexpr int N = 8; };
 
 __device__ __forceinline__ void load16(const float* src, float* dst) {
   const float4 x = *reinterpret_cast<const float4*>(src);
   dst[0] = x.x; dst[1] = x.y; dst[2] = x.z; dst[3] = x.w;
 }
 
-__device__ __forceinline__ void load16(const __nv_bfloat16* src, float* dst) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(src);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    dst[2 * i] = f.x;
-    dst[2 * i + 1] = f.y;
-  }
-}
-
 __device__ __forceinline__ void store(float* dst, float x) { *dst = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* dst, float x) { *dst = __float2bfloat16(x); }
 
 // Stage `nrows` rows of HD elements (row r at src + r * src_stride) into
 // shared memory as float32 times `mul`, row stride `ld`; rows >= `valid`
@@ -281,22 +269,17 @@ cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v, voi
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16.  window <= 0 means no window.  Returns
-// the cudaError_t of the launch (0 on success); the kernel runs on `stream`
-// and is not waited for.
+// float32 q, k, v, o.  window <= 0 means no window.  Returns the cudaError_t
+// of the launch (0 on success); the kernel runs on `stream` and is not
+// waited for.
 int flash_fwd(const void* q, const void* k, const void* v, void* o, int B, int S, int H,
               int KH, int hd, int blk_q, int blk_k, int causal, int window, float scale,
-              int dtype, void* stream) {
+              void* stream) {
   if (B < 1 || S < 1 || KH < 1 || H % KH != 0 || blk_q < 1 || blk_q > MAX_BLK_Q ||
       blk_k < 1 || S % blk_q != 0 || S % blk_k != 0)
     return cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch_hd<float>(hd, q, k, v, o, B, S, H, KH, blk_q, blk_k, causal, window, scale, s);
-  if (dtype == 1)
-    return dispatch_hd<__nv_bfloat16>(hd, q, k, v, o, B, S, H, KH, blk_q, blk_k, causal, window,
-                                      scale, s);
-  return cudaErrorInvalidValue;
+  return dispatch_hd<float>(hd, q, k, v, o, B, S, H, KH, blk_q, blk_k, causal, window, scale,
+                            static_cast<cudaStream_t>(stream));
 }
 
 const char* flash_fwd_error_string(int err) {

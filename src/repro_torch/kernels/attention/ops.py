@@ -1,11 +1,16 @@
 """Public wrapper for the flash attention kernel (counterpart of
 ``repro.kernels.attention.ops.flash_attention``).
 
-Takes the model's ``(B, S, H, hd)`` layout.  A CUDA tensor goes to the
-hand-written kernel ``csrc/flash_fwd.cu`` (built at first use); a CPU tensor
-goes to the plain PyTorch version in ``ref.py``.  There is no fallback from
-one to the other: on the card the kernel runs or the call raises.
-``launches`` counts kernel launches (plain-version calls are not counted).
+Takes the model's ``(B, S, H, hd)`` layout.  A CUDA tensor goes to a
+hand-written kernel, built at first use and chosen by dtype: bfloat16 (the
+serve path) to the tensor-core kernel ``csrc/flash_fwd_sm90.cu`` (TMA and
+``wgmma``), float32 to the CUDA-core kernel ``csrc/flash_fwd.cu``, whose
+float32 products hold the float32 tolerance that bf16 or TF32 products
+cannot.  A CPU tensor goes to the plain PyTorch version in ``ref.py``.
+There is no fallback from one to another: on the card the chosen kernel
+runs or the call raises.  ``launches`` counts kernel launches of either
+kernel, ``tensor_core_launches`` those of the bf16 kernel (plain-version
+calls are not counted).
 """
 
 from __future__ import annotations
@@ -19,28 +24,38 @@ import torch
 
 from .ref import attention_reference
 
-# Kernel launches since the counter was last reset (chip_smoke.py sets it to
-# 0 before it drives the main path).
+# Kernel launches since the counters were last reset (chip_smoke.py sets
+# both to 0 before it drives the main path).
 launches = 0
+tensor_core_launches = 0
 
-SUPPORTED_HEAD_DIMS = (16, 32, 64, 80, 128)
-MAX_BLK_Q = 128
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# What each kernel takes.  The float32 kernel also needs blk_q <= 128; the
+# bf16 kernel tiles on its own (128 q rows, 128 or 64 keys) whatever blk_q
+# and blk_k are, since the result does not depend on the block sizes.
+HEAD_DIMS = {
+    torch.bfloat16: (16, 32, 64, 80, 128, 192),
+    torch.float32: (16, 32, 64, 80, 128),
+}
+MAX_BLK_Q_F32 = 128
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_ARGTYPES = {  # q, k, v, o; B, S, H, K, hd, [blk_q, blk_k,] causal, window; scale; stream
+    "flash_fwd": [_P] * 4 + [_I] * 9 + [_F, _P],
+    "flash_fwd_sm90": [_P] * 4 + [_I] * 7 + [_F, _P],
+}
 
 
 @lru_cache(maxsize=None)
-def _kernel():
+def _kernel(stem: str):
     from repro_torch.kernels import _build
 
-    lib = _build.library("flash_fwd")
-    fn = lib.flash_fwd
-    fn.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
-        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    )
+    lib = _build.library(stem)
+    fn = getattr(lib, stem)
+    fn.argtypes = _ARGTYPES[stem]
     fn.restype = ctypes.c_int
-    lib.flash_fwd_error_string.argtypes = [ctypes.c_int]
-    lib.flash_fwd_error_string.restype = ctypes.c_char_p
+    err = getattr(lib, f"{stem}_error_string")
+    err.argtypes = [ctypes.c_int]
+    err.restype = ctypes.c_char_p
     return lib
 
 
@@ -52,8 +67,8 @@ def _check(q, k, v, blk_q, blk_k, window):
         raise ValueError(f"k/v shape {tuple(k.shape)}/{tuple(v.shape)} does not match q {tuple(q.shape)}")
     if H % k.shape[2] != 0:
         raise ValueError("GQA requires n_heads % n_kv_heads == 0")
-    if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"q, k, v must share a dtype in {list(_DTYPE_CODES)}; got {q.dtype}, {k.dtype}, {v.dtype}")
+    if q.dtype not in HEAD_DIMS or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q, k, v must share a dtype in {list(HEAD_DIMS)}; got {q.dtype}, {k.dtype}, {v.dtype}")
     if S % blk_q or S % blk_k:
         raise ValueError(f"sequence length {S} must be a multiple of blk_q={blk_q} and blk_k={blk_k}")
     if window is not None and window < 1:
@@ -75,7 +90,7 @@ def flash_attention(
     """Causal / sliding-window GQA attention; returns ``(B, S, H, hd)`` in
     q's dtype.  ``blk = min(blk, S)`` and ``S % blk == 0``, as in the JAX
     wrapper."""
-    global launches
+    global launches, tensor_core_launches
     S = q.shape[1]
     blk_q, blk_k = min(blk_q, S), min(blk_k, S)
     _check(q, k, v, blk_q, blk_k, window)
@@ -88,28 +103,30 @@ def flash_attention(
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
     B, S, H, hd = q.shape
-    if hd not in SUPPORTED_HEAD_DIMS:
-        raise NotImplementedError(f"head dim {hd} not in {SUPPORTED_HEAD_DIMS}")
-    if blk_q > MAX_BLK_Q:
-        raise NotImplementedError(f"blk_q {blk_q} > {MAX_BLK_Q}")
+    if hd not in HEAD_DIMS[q.dtype]:
+        raise NotImplementedError(f"head dim {hd} not in {HEAD_DIMS[q.dtype]} for {q.dtype}")
+    tensor_core = q.dtype == torch.bfloat16
+    if not tensor_core and blk_q > MAX_BLK_Q_F32:
+        raise NotImplementedError(f"blk_q {blk_q} > {MAX_BLK_Q_F32} for float32")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
     out = torch.empty_like(q)
-    lib = _kernel()
+    stem = "flash_fwd_sm90" if tensor_core else "flash_fwd"
+    lib = _kernel(stem)
+    blocks = () if tensor_core else (blk_q, blk_k)
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.flash_fwd(
+        err = getattr(lib, stem)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, S, H, k.shape[2], hd, blk_q, blk_k, int(causal),
+            B, S, H, k.shape[2], hd, *blocks, int(causal),
             -1 if window is None else int(window), 1.0 / math.sqrt(hd),
-            _DTYPE_CODES[q.dtype], stream,
+            torch.cuda.current_stream(q.device).cuda_stream,
         )
     if err != 0:
-        raise RuntimeError(
-            f"flash_fwd launch failed: {lib.flash_fwd_error_string(err).decode()} (cudaError {err})"
-        )
+        message = getattr(lib, f"{stem}_error_string")(err).decode()
+        raise RuntimeError(f"{stem} launch failed: {message} (error {err})")
     launches += 1
+    tensor_core_launches += int(tensor_core)
     return out

@@ -36,6 +36,14 @@ CASES = [  # (B, S, H, K, hd, blk_q, blk_k, window), the JAX kernel sweep
     (1, 128, 4, 4, 80, 64, 64, None),  # head dim 80 (zamba2's shared block)
     (2, 256, 8, 8, 80, 128, 128, None),
 ]
+BF16_CASES = [  # the tensor-core kernel only: bf16 takes what float32 does not
+    (1, 256, 8, 2, 192, 128, 128, None),  # head dim 192 (nemotron-4-340b)
+    (1, 384, 4, 2, 192, 128, 128, 100),  # head dim 192 with a window, 64-key tiles
+    (2, 512, 8, 2, 128, 128, 128, None),  # serve-like: granite's head dim, S = 512
+    (2, 512, 8, 8, 80, 128, 128, None),  # serve-like: zamba2's head dim, S = 512
+    (1, 512, 4, 2, 128, 128, 128, 200),  # a window at S = 512
+    (1, 512, 4, 2, 128, 256, 64, None),  # blk_q above 128
+]
 SSD_CASES = [  # (B, S, H, P, G, N, chunk), tests/test_kernels.py:110-118, then zamba2's widths
     (1, 64, 2, 16, 1, 8, 16),
     (2, 128, 4, 16, 2, 8, 32),
@@ -67,20 +75,46 @@ def _inputs(case, dtype, seed=0):
     return [torch.randn(B, S, n, hd, generator=gen, device="cuda").to(dtype) for n in (H, K, K)]
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", CASES)
-def test_flash_kernel_matches_plain_version(cuda, case, dtype):
+def _check_flash(case, dtype):
+    """One launch of the kernel that the dtype selects (bf16: the tensor-core
+    kernel), held against the plain version."""
     q, k, v = _inputs(case, dtype)
     _, _, _, _, _, blk_q, blk_k, window = case
-    before = ops.launches
+    before, before_tc = ops.launches, ops.tensor_core_launches
     got = ops.flash_attention(q, k, v, window=window, blk_q=blk_q, blk_k=blk_k)
     assert ops.launches == before + 1
+    assert ops.tensor_core_launches == before_tc + (dtype == torch.bfloat16)
     assert got.device.type == "cuda" and got.dtype == dtype and got.shape == q.shape
     want = ref.attention_reference(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), window=window
     ).transpose(1, 2)
     tol = TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", CASES)
+def test_flash_kernel_matches_plain_version(cuda, case, dtype):
+    _check_flash(case, dtype)
+
+
+@pytest.mark.parametrize("case", BF16_CASES)
+def test_flash_tensor_core_kernel_matches_plain_version(cuda, case):
+    _check_flash(case, torch.bfloat16)
+
+
+def test_flash_kernel_routes_by_dtype(cuda):
+    """float32 keeps the CUDA-core kernel's limits (head dims up to 128,
+    blk_q up to 128); bf16 takes both."""
+    q, k, v = _inputs((1, 256, 4, 2, 192), torch.float32)
+    with pytest.raises(NotImplementedError):
+        ops.flash_attention(q, k, v)
+    q, k, v = _inputs((1, 256, 4, 2, 64), torch.float32)
+    with pytest.raises(NotImplementedError):
+        ops.flash_attention(q, k, v, blk_q=256)
+    before = ops.tensor_core_launches
+    ops.flash_attention(*(t.to(torch.bfloat16) for t in (q, k, v)), blk_q=256)
+    assert ops.tensor_core_launches == before + 1
 
 
 def test_flash_kernel_rejects_what_it_does_not_take(cuda):
@@ -178,3 +212,22 @@ def test_kernel_prefill_matches_torch_path(cuda, name):
         want = [cfg.n_layers, 0, 0]
     assert [m.launches - b for m, b in zip(counters, before)] == want
     torch.testing.assert_close(fast, plain, atol=2e-4, rtol=2e-4)
+
+
+@pytest.mark.parametrize("name", ["granite-3-8b", "zamba2-2.7b"])
+def test_kernel_prefill_matches_torch_path_bf16(cuda, name):
+    """The same in bf16, the serve path's dtype: every flash launch goes to
+    the tensor-core kernel; 2e-2, the bf16 kernel tolerance."""
+    cfg = get_arch(name).reduced()
+    assert cfg.param_dtype == "bfloat16" and cfg.activation_dtype == "bfloat16"
+    params = build_model(cfg).init(0, device=cuda)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 64), device=cuda,
+                           generator=torch.Generator(device="cuda").manual_seed(1))
+    before, before_tc = ops.launches, ops.tensor_core_launches
+    with torch.inference_mode():
+        fast, _ = build_model(cfg, impl="kernel").forward(params, {"tokens": tokens})
+        plain, _ = build_model(cfg).forward(params, {"tokens": tokens})
+    want = cfg.n_layers // cfg.shared_attn_every if cfg.family == "hybrid" else cfg.n_layers
+    assert ops.launches - before == want
+    assert ops.tensor_core_launches - before_tc == want
+    torch.testing.assert_close(fast.float(), plain.float(), atol=2e-2, rtol=2e-2)

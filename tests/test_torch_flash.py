@@ -11,6 +11,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from repro.kernels.attention.ops import flash_attention as jax_flash
+from repro_torch.configs import all_archs
 from repro_torch.kernels.attention import ops
 
 TORCH_DTYPES = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
@@ -54,6 +55,23 @@ def _compare(jax_in, torch_in, dtype, **kw):
 def test_flash_attention_sweep(B, S, H, K, hd, blk, dtype):
     jax_in, torch_in = _inputs(0, B, S, H, K, hd, dtype)
     _compare(jax_in, torch_in, dtype, blk_q=blk, blk_k=blk)
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_flash_attention_head_dim_192(dtype):
+    """nemotron-4-340b's head dim, which the card takes in bf16."""
+    jax_in, torch_in = _inputs(4, 1, 128, 4, 2, 192, dtype)
+    _compare(jax_in, torch_in, dtype, blk_q=64, blk_k=64)
+
+
+@pytest.mark.parametrize("reduced", [False, True])
+@pytest.mark.parametrize("name", sorted(all_archs()))
+def test_every_config_head_dim_is_taken_by_the_bf16_kernel(name, reduced):
+    """The serve path runs bf16, so the tensor-core kernel must take the
+    head dim of every config the port serves, full width or reduced."""
+    cfg = all_archs()[name]
+    cfg = cfg.reduced() if reduced else cfg
+    assert cfg.resolved_head_dim in ops.HEAD_DIMS[torch.bfloat16]
 
 
 @pytest.mark.parametrize("window", [32, 96, 1024])
