@@ -15,16 +15,22 @@ Phases, in order; any failure raises and the script exits non-zero:
    CUDA-core kernel (flash_fwd.cu); both run the sweep of the JAX package's
    kernel tests (MHA, GQA 2:1 and 4:1, MQA; windows 32/96/1024; blocks
    128/32; S = 12) plus head dim 80, and bf16 also head dim 192.  Then the
-   SSD and RWKV6 sweeps of the same tests and RWKV6's strong-decay case.
+   SSD sweep of the same tests on the tensor-core SSD kernel
+   (ssd_fwd_sm90.cu, whose registers, shared memory and spills are printed
+   here), the RWKV6 sweep and RWKV6's strong-decay case.
    Each kernel is checked and timed at the shape its serve path gives it
    (granite-3-8b and zamba2-2.7b attention, zamba2's SSD, rwkv6-3b's WKV),
    beside its plain version, PyTorch's fused attention for flash, and its
-   bound; the flash kernel and PyTorch's attention both eagerly (CUDA events
-   over 20 calls) and by replaying a CUDA graph of 20 captured calls, which
-   leaves out the host's cost of each call; the float32 flash kernel is
-   timed at granite's shape too.  At their serve shapes the scans are held
-   elementwise against their plain version run in float64, with the float32
-   plain version's own error printed beside them.
+   bound; the flash and SSD kernels and PyTorch's attention both eagerly
+   (CUDA events over 20 calls) and by replaying a CUDA graph of 20 captured
+   calls, which leaves out the host's cost of each call; the float32 flash
+   kernel is timed at granite's shape too.  The SSD kernel's bound is at
+   the TF32 tensor-core rate with three split-TF32 products per product,
+   where the kernel does its products; the bound at the float32 rate outside
+   the tensor cores is printed beside it.  At their
+   serve shapes the scans are held elementwise against their plain version
+   run in float64, with the float32 plain version's own error printed
+   beside them.
 3. Serve granite-3-8b, zamba2-2.7b and rwkv6-3b at full width and depth with
    random weights (seeded on the card): 8 requests, 512-token prompts, 32
    generated tokens each.  Every launch count is set to 0 before each run
@@ -59,6 +65,7 @@ REPO = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 F32_FLOPS = 67e12  # float32 outside the tensor cores
+TF32_FLOPS = 495e12  # the tensor cores in TF32
 
 FLASH_SWEEP = [  # (B, S, H, K, hd, blk_q, blk_k, window), tests/test_kernels.py
     (1, 128, 4, 4, 32, 64, 64, None),  # MHA
@@ -143,16 +150,19 @@ def graph_ms(fn, n: int = 20, replays: int = 10) -> float:
 
 
 def kernel_name(mangled: str) -> str:
-    """``flash_fwd_sm90_kernel<128>``, ``ssd_fwd_kernel<float>`` and the like
-    from a mangled kernel name (a length-prefixed name ending in
-    ``_kernel``, then its template arguments up to ``EE``)."""
+    """``flash_fwd_sm90_kernel<128>``, ``rwkv6_fwd_kernel<float>``,
+    ``ssd_fwd_sm90_kernel`` and the like from a mangled kernel name (a
+    length-prefixed name ending in ``_kernel``, then its template arguments
+    up to ``EE``, or ``E`` where it has none)."""
     for m in re.finditer(r"\d+", mangled):
         for start in range(m.start(), m.end()):  # a hash's digits may run into the prefix
             name = mangled[m.end():m.end() + int(mangled[start:m.end()])]
-            if name.endswith("_kernel") and mangled[m.end() + len(name):].startswith("I"):
+            if name.endswith("_kernel") and mangled[m.end() + len(name):][:1] in ("I", "E"):
                 break
         else:
             continue
+        if mangled[m.end() + len(name)] == "E":
+            return name
         args = mangled[m.end() + len(name) + 1:].split("EE", 1)[0]
         args = re.sub(r"Li(\d+)E?", r",\1", args).replace("13__nv_bfloat16", ",bf16")
         args = re.sub(r"(^|,)f(?=,|$)", r"\1float", args)
@@ -295,20 +305,38 @@ def least_flops_per_step(per_chunk, S: int) -> float:
     return min(per_chunk(Q) / Q for Q in range(1, S + 1))
 
 
-def ssd_bound_ms(case, in_bytes: int):
-    """Least time for the SSD function: x, B, C at their size, dt, A, y and
-    the state once over HBM rate vs the least operations over the peak for
-    the inputs' type.  A chunk of Q steps costs 2 per multiply-add of the
-    causal halves of C B^T and of the score product, of C S and of the state
-    update, and 1 per element of the state's decay (exponentials not
-    counted); at Q = 1 that is the recurrence's 5 N P + 2 (N + P) per step."""
+def ssd_work(case, in_bytes: int):
+    """The bytes the SSD function moves (x, B, C at their size, dt, A, y and
+    the state once) and its least operations over the chunk lengths.  A
+    chunk of Q steps costs 2 per multiply-add of the causal halves of C B^T
+    and of the score product, of C S and of the state update, and 1 per
+    element of the state's decay (exponentials not counted); at Q = 1 that is
+    the recurrence's 5 N P + 2 (N + P) per step."""
     B, S, H, P, G, N, _ = case
     nbytes = (in_bytes * (B * S * H * P + 2 * B * S * G * N) + 4 * (B * S * H + H)
               + 4 * (B * S * H * P + B * H * N * P))
     per_chunk = lambda Q: 2 * (Q * (Q + 1) // 2 * (N + P) + 2 * Q * N * P) + N * P
-    flops = least_flops_per_step(per_chunk, S) * B * S * H
-    peak = F32_FLOPS if in_bytes == 4 else BF16_FLOPS
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+    return nbytes, least_flops_per_step(per_chunk, S) * B * S * H
+
+
+def ssd_bound_ms(case, in_bytes: int):
+    """Least time for the SSD function outside the tensor cores (the kernels
+    line's ``bound_f32_ms``): its bytes over HBM rate vs its least operations
+    over the peak for the inputs' type there.  Returns (ms, "bytes" |
+    "operations")."""
+    nbytes, flops = ssd_work(case, in_bytes)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / (F32_FLOPS if in_bytes == 4 else BF16_FLOPS)
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def ssd_tc_bound_ms(case, in_bytes: int):
+    """The SSD bound on the tensor cores, where the kernel does its products
+    (the kernels line's ``bound_ms``): the same bytes vs three times the least
+    operations (split TF32: hi.hi + hi.lo + lo.hi) over the TF32 peak.
+    Returns (ms, "bytes" | "operations")."""
+    nbytes, flops = ssd_work(case, in_bytes)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 3 * flops / TF32_FLOPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -501,18 +529,35 @@ def phase2_kernels(torch, gen, build_logs: dict) -> dict:
           f"{flash_bound_ms(GRANITE_ATTN, 4)[0]:.4f} ms", flush=True)
     del q, k, v
 
+    print("phase 2: SSD, tensor-core kernel (ssd_fwd_sm90.cu): nvcc -Xptxas -v")
+    ssd_smem = ssd_ops._kernel().ssd_fwd_sm90_smem_bytes()
+    summary = ptxas_summary(build_logs.get("ssd_fwd_sm90", ""))
+    if not summary:
+        print("  (no compiler output: the library was built before this run)")
+    for fn, regs, spill_st, spill_ld, smem in summary:
+        print(f"  {fn}: {regs} registers at launch (setmaxnreg: 240 per consumer thread, 24 per "
+              f"producer thread), {spill_st} / {spill_ld} bytes spill stores / loads, "
+              f"{smem} B static + {ssd_smem} B dynamic shared memory")
+        if spill_st or spill_ld:
+            raise RuntimeError(f"{fn} spills registers")
+    for line in build_logs.get("ssd_fwd_sm90", "").splitlines():
+        if "Performance Loss" in line:
+            print("  ptxas:", line.strip()[:160])
     print("phase 2: SSD kernel vs plain version")
     for dtype, tol in ((torch.float32, 2e-4), (torch.bfloat16, 2e-2)):
         for case in SSD_SWEEP:
             check_ssd(case, dtype, gen, tol)
     err, args = check_ssd(ZAMBA_SSD, torch.float32, gen, 2e-4, float64=True)
+    kernel = lambda: ssd_ops.ssd_scan(*args, chunk=ZAMBA_SSD[6])
     out["ssd_fwd"] = dict(
         max_abs_err=err,
-        ms=cuda_ms(lambda: ssd_ops.ssd_scan(*args, chunk=ZAMBA_SSD[6])),
+        ms=graph_ms(kernel),
+        ms_eager=cuda_ms(kernel),
         plain_ms=cuda_ms(lambda: ssd_plain(*args), iters=5, warmup=1),
         library_ms=None,
     )
-    out["ssd_fwd"]["bound_ms"], out["ssd_fwd"]["bound_by"] = ssd_bound_ms(ZAMBA_SSD, 4)
+    out["ssd_fwd"]["bound_ms"], out["ssd_fwd"]["bound_by"] = ssd_tc_bound_ms(ZAMBA_SSD, 4)
+    out["ssd_fwd"]["bound_f32_ms"], out["ssd_fwd"]["bound_f32_by"] = ssd_bound_ms(ZAMBA_SSD, 4)
     del args
 
     print("phase 2: RWKV6 kernel vs plain version")
@@ -533,15 +578,18 @@ def phase2_kernels(torch, gen, build_logs: dict) -> dict:
     for name, shape in (("flash_fwd", GRANITE_ATTN[:5]), ("flash_fwd hd80", ZAMBA_ATTN[:5]),
                         ("ssd_fwd", ZAMBA_SSD), ("rwkv6_fwd", RWKV6_SERVE)):
         m = out[name]
+        kernel = f"kernel {m['ms']:.4f} ms"
         if "ms_eager" in m:
-            times = (f"kernel {m['ms']:.4f} ms graph-replayed / {m['ms_eager']:.4f} ms eager, "
-                     f"plain {m['plain_ms']:.4f} ms, library {m['library_ms']:.4f} ms "
-                     f"graph-replayed / {m['library_ms_eager']:.4f} ms eager")
-        else:
-            lib_ms = "none" if m["library_ms"] is None else f"{m['library_ms']:.4f} ms"
-            times = f"kernel {m['ms']:.4f} ms, plain {m['plain_ms']:.4f} ms, library {lib_ms}"
-        print(f"  {name} at {shape}: {times}, bound {m['bound_ms']:.4f} ms ({m['bound_by']})",
-              flush=True)
+            kernel += f" graph-replayed / {m['ms_eager']:.4f} ms eager"
+        library = "none" if m["library_ms"] is None else f"{m['library_ms']:.4f} ms"
+        if "library_ms_eager" in m:
+            library += f" graph-replayed / {m['library_ms_eager']:.4f} ms eager"
+        bound = f"bound {m['bound_ms']:.4f} ms ({m['bound_by']})"
+        if "bound_f32_ms" in m:
+            bound += (f" on the tensor cores in split TF32, {m['bound_f32_ms']:.4f} ms "
+                      f"({m['bound_f32_by']}) at the float32 rate")
+        print(f"  {name} at {shape}: {kernel}, plain {m['plain_ms']:.4f} ms, library {library}, "
+              f"{bound}", flush=True)
     return out
 
 
@@ -669,7 +717,7 @@ def main() -> int:
     sources = {
         "flash_fwd": ("src/repro_torch/kernels/attention/csrc/flash_fwd_sm90.cu",
                       "src/repro/kernels/attention/flash.py:33"),
-        "ssd_fwd": ("src/repro_torch/kernels/ssd/csrc/ssd_fwd.cu",
+        "ssd_fwd": ("src/repro_torch/kernels/ssd/csrc/ssd_fwd_sm90.cu",
                     "src/repro/kernels/ssd/chunked.py:30"),
         "rwkv6_fwd": ("src/repro_torch/kernels/rwkv6/csrc/rwkv6_fwd.cu",
                       "src/repro/kernels/rwkv6/chunked.py:34"),
@@ -691,8 +739,8 @@ def main() -> int:
             "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"],
             "library_ms": m["library_ms"],
-            **{key: m[key] for key in ("ms_eager", "library_ms_eager", "at_zamba2_hd80")
-               if key in m},
+            **{key: m[key] for key in ("ms_eager", "library_ms_eager", "at_zamba2_hd80",
+                                       "bound_f32_ms", "bound_f32_by") if key in m},
         })
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -90,6 +90,6 @@ def test_kernel_sources_ship_with_the_package():
         "kernels/attention/csrc/flash_fwd.cu",
         "kernels/attention/csrc/flash_fwd_sm90.cu",
         "kernels/rwkv6/csrc/rwkv6_fwd.cu",
-        "kernels/ssd/csrc/ssd_fwd.cu",
+        "kernels/ssd/csrc/ssd_fwd_sm90.cu",
     ]
     assert "repro_torch" in (REPO / "pyproject.toml").read_text()

@@ -51,6 +51,20 @@ SSD_CASES = [  # (B, S, H, P, G, N, chunk), tests/test_kernels.py:110-118, then 
     (1, 256, 8, 16, 4, 8, 32),
     (1, 256, 4, 64, 1, 64, 128),
 ]
+SSD_EDGE_CASES = [  # (B, S, H, P, G, N, chunk); a work unit of the kernel takes five heads
+    (2, 256, 12, 32, 2, 16, 64),  # G > 1, five heads of a group share C.B^T, then one
+    (1, 128, 7, 16, 1, 16, 32),  # H not a multiple of the unit's heads
+    (1, 128, 8, 32, 2, 16, 64),  # nor H / G: a partial unit of four heads per group
+    (2, 128, 4, 64, 1, 64, 128),  # Q = 128 with S = Q: one chunk
+    (1, 128, 4, 16, 1, 32, 64),  # P and N below 64
+    (1, 128, 4, 32, 1, 16, 64),
+    (1, 128, 3, 24, 1, 40, 64),  # P, N not multiples of 16
+    (1, 96, 2, 18, 1, 10, 32),  # nor of 4: padded by the wrapper
+    (1, 100, 3, 32, 1, 32, 100),  # S not a multiple of the kernel's 64-step chunks
+    (1, 512, 5, 64, 1, 64, 256),  # a chunk above 128
+    (1, 512, 10, 64, 1, 64, 128),  # zamba2's widths, two units of five heads
+    (2, 256, 4, 64, 4, 64, 128),  # one head per group: units of one head
+]
 RWKV6_CASES = [  # (B, S, H, P, chunk), tests/test_kernels.py:74-77, then rwkv6-3b's widths
     (1, 64, 2, 16, 16),
     (2, 128, 3, 16, 32),
@@ -130,9 +144,9 @@ def test_flash_kernel_rejects_what_it_does_not_take(cuda):
         ops.flash_attention(q, k.cpu(), v)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", SSD_CASES)
-def test_ssd_kernel_matches_plain_version(cuda, case, dtype):
+def _check_ssd(case, dtype):
+    """One launch of the tensor-core SSD kernel, held elementwise against
+    the plain version on the card."""
     B, S, H, P, G, N, chunk = case
     gen = torch.Generator(device="cuda").manual_seed(5)
     rn = lambda *shape: torch.randn(*shape, generator=gen, device="cuda")
@@ -143,12 +157,25 @@ def test_ssd_kernel_matches_plain_version(cuda, case, dtype):
     y, st = ssd_ops.ssd_scan(xh, dt, A, bm, cm, chunk=chunk)
     assert ssd_ops.launches == before + 1
     torch.cuda.synchronize()
+    assert y.shape == (B, S, H, P) and st.shape == (B, H, N, P)
     xw = (xh.float() * dt[..., None]).transpose(1, 2)
     la = (dt * A).transpose(1, 2)[..., None]
     y_ref, st_ref = ssd_ref.ssd_reference(xw, la, bm.transpose(1, 2), cm.transpose(1, 2))
     tol = TOL[dtype]
     torch.testing.assert_close(y, y_ref.transpose(1, 2), atol=tol, rtol=tol)
     torch.testing.assert_close(st, st_ref, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", SSD_CASES)
+def test_ssd_kernel_matches_plain_version(cuda, case, dtype):
+    _check_ssd(case, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", SSD_EDGE_CASES)
+def test_ssd_kernel_edges_match_plain_version(cuda, case, dtype):
+    _check_ssd(case, dtype)
 
 
 @pytest.mark.parametrize("logw", [None, -5.0])  # the sweep's draw; strong decay

@@ -1,11 +1,15 @@
 """SSD parity: the port's plain version and ``ssd_scan``'s CPU path against
 the JAX package's Pallas kernel in interpret mode, on the sweep of
-``tests/test_kernels.py`` (same tolerances), and the port's Mamba2 chunked
-scan against the JAX model's, with an initial state and padding."""
+``tests/test_kernels.py`` (same tolerances) and at the CUDA kernel's edges,
+and the port's Mamba2 chunked scan against the JAX model's, with an initial
+state and padding."""
 
 import pytest
 
 torch = pytest.importorskip("torch")
+
+import sys
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -16,12 +20,21 @@ from repro_torch.kernels.ssd import ops, ref
 from repro_torch.models import mamba2 as tm
 from torch_parity import BF16_TOL, F32_TOL, assert_close, rand
 
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402  (the bounds it prints; it imports torch only when run)
+
 TORCH_DTYPES = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
 SWEEP = [  # (B, S, H, P, G, N, chunk), tests/test_kernels.py:110-118
     (1, 64, 2, 16, 1, 8, 16),
     (2, 128, 4, 16, 2, 8, 32),  # grouped B/C
     (1, 128, 4, 32, 1, 16, 64),
     (1, 256, 8, 16, 4, 8, 32),
+]
+KERNEL_EDGES = [  # (B, S, H, P, G, N, chunk): shapes at the CUDA kernel's edges
+    (2, 128, 12, 16, 2, 8, 32),  # G > 1, six heads a group: a unit of five heads, then one
+    (1, 64, 7, 16, 1, 16, 32),  # H not a multiple of the unit's five heads
+    (1, 96, 2, 18, 1, 10, 32),  # P, N not multiples of 4 (the kernel's input is padded)
+    (1, 256, 2, 16, 1, 8, 256),  # a chunk above 128 (the kernel runs 64-step chunks)
 ]
 
 
@@ -38,7 +51,7 @@ def _inputs(seed, B, S, H, P, G, N):
 
 
 @pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
-@pytest.mark.parametrize("case", SWEEP)
+@pytest.mark.parametrize("case", SWEEP + KERNEL_EDGES)
 def test_plain_version_and_wrapper_match_jax_kernel(case, dtype):
     B, S, H, P, G, N, chunk = case
     xh, dt, A, bm, cm = _inputs(0, B, S, H, P, G, N)
@@ -127,3 +140,33 @@ def test_ssd_scan_rejects_bad_arguments(change, err):
         A = torch.zeros(change["A_len"])
     with pytest.raises(err):
         ops.ssd_scan(xh, dt, A, bm, cm, chunk=change.get("chunk", 16))
+
+
+def test_kernel_inputs_cast_pad_and_keep_strides():
+    """What the wrapper hands the CUDA kernel: float32, head and state dims
+    padded with zeros to multiples of 4, and the model's strides where TMA
+    can take them (no copy), a packed copy where it cannot."""
+    x = torch.randn(2, 64, 3, 18, dtype=torch.bfloat16)
+    b = torch.randn(2, 64, 1, 10)
+    x4, b4, c4 = ops.kernel_inputs(x, b, b)
+    assert x4.dtype == torch.float32 and x4.shape == (2, 64, 3, 20)
+    assert torch.equal(x4[..., :18], x.float()) and not x4[..., 18:].any()
+    assert b4.shape == c4.shape == (2, 64, 1, 12) and not b4[..., 10:].any()
+    wide = torch.randn(2, 64, 56)  # a row of a larger projection: seq stride 56
+    xs = wide[..., :48].reshape(2, 64, 3, 16)
+    x4, _, _ = ops.kernel_inputs(xs, b, b)
+    assert x4.data_ptr() == xs.data_ptr() and x4.stride() == xs.stride()
+    odd = torch.randn(2, 64, 50)[..., :48].reshape(2, 64, 3, 16)  # seq stride 50: no 16-byte rows
+    x4, _, _ = ops.kernel_inputs(odd, b, b)
+    assert x4.is_contiguous() and torch.equal(x4, odd)
+
+
+def test_ssd_bounds_at_zamba2_serve_shape():
+    """chip_smoke.py's two bounds for K2 at zamba2-2.7b's prefill (B=8,
+    S=512, H=80, P=64, G=1, N=64, float32): the least operations at the
+    float32 FMA rate, and on the tensor cores (three TF32 products each),
+    where the kernel runs and the 182 MB that the function moves bound it."""
+    ms, by = chip_smoke.ssd_bound_ms(chip_smoke.ZAMBA_SSD, 4)
+    assert by == "operations" and ms == pytest.approx(0.0879, abs=5e-5)
+    ms, by = chip_smoke.ssd_tc_bound_ms(chip_smoke.ZAMBA_SSD, 4)
+    assert by == "bytes" and ms == pytest.approx(0.0542, abs=5e-5)
