@@ -17,20 +17,23 @@ Phases, in order; any failure raises and the script exits non-zero:
    128/32; S = 12) plus head dim 80, and bf16 also head dim 192.  Then the
    SSD sweep of the same tests on the tensor-core SSD kernel
    (ssd_fwd_sm90.cu, whose registers, shared memory and spills are printed
-   here), the RWKV6 sweep and RWKV6's strong-decay case.
+   here), the RWKV6 sweep and RWKV6's strong-decay case on the tensor-core
+   RWKV6 kernel (rwkv6_fwd_sm90.cu, whose registers, spills, shared memory
+   and blocks per SM are printed here).
    Each kernel is checked and timed at the shape its serve path gives it
    (granite-3-8b and zamba2-2.7b attention, zamba2's SSD, rwkv6-3b's WKV),
    beside its plain version, PyTorch's fused attention for flash, and its
-   bound; the flash and SSD kernels and PyTorch's attention both eagerly
-   (CUDA events over 20 calls) and by replaying a CUDA graph of 20 captured
-   calls, which leaves out the host's cost of each call; the float32 flash
-   kernel is timed at granite's shape too.  The SSD kernel's bound is at
-   the TF32 tensor-core rate with three split-TF32 products per product,
-   where the kernel does its products; the bound at the float32 rate outside
-   the tensor cores is printed beside it.  At their
-   serve shapes the scans are held elementwise against their plain version
-   run in float64, with the float32 plain version's own error printed
-   beside them.
+   bound; every kernel and PyTorch's attention both eagerly (CUDA events
+   over 20 calls) and by replaying a CUDA graph of 20 captured calls, which
+   leaves out the host's cost of each call; the float32 flash kernel is
+   timed at granite's shape too, the RWKV6 kernel with float32 and with the
+   bfloat16 r, k, v the model feeds.  The SSD and RWKV6 kernels' bounds are
+   at the TF32 tensor-core rate with three split-TF32 products per product,
+   where the kernels do their products; the bound at the float32 rate
+   outside the tensor cores is printed beside it.  At their serve shapes
+   the scans are held elementwise against their plain version run in
+   float64, with the float32 plain version's own error printed beside
+   them.
 3. Serve granite-3-8b, zamba2-2.7b and rwkv6-3b at full width and depth with
    random weights (seeded on the card): 8 requests, 512-token prompts, 32
    generated tokens each.  Every launch count is set to 0 before each run
@@ -92,6 +95,7 @@ RWKV6_SWEEP = [  # (B, S, H, P, chunk), tests/test_kernels.py:74-77
     (1, 64, 2, 16, 16), (2, 128, 3, 16, 32), (1, 96, 1, 32, 32), (1, 32, 2, 8, 32),
 ]
 RWKV6_STRONG = (1, 128, 2, 16, 32)  # with logw = -5, tests/test_kernels.py:92-104
+RWKV6_STRONG_WIDE = (1, 512, 2, 64, 64)  # logw = -5 at rwkv6's widths, eight 64-step chunks
 RWKV6_SERVE = (8, 512, 40, 64, 32)  # rwkv6-3b's prompt forward, per layer
 
 SERVE_ARCHS = ["granite-3-8b", "zamba2-2.7b", "rwkv6-3b"]
@@ -372,21 +376,38 @@ def check_rwkv6(case, dtype, gen, tol, logw=None, float64=False):
     return check_against(label, got, rwkv6_plain, args, tol, float64), args
 
 
-def rwkv6_bound_ms(case, in_bytes: int):
-    """Least time for the WKV function: r, k, v at their size, logw, u, the
-    output and the state once over HBM rate vs the least operations over the
-    peak for the inputs' type.  A chunk of Q steps costs 2 per multiply-add
-    of the two (Q,P)x(P,P) products and of the causal output term, 3 per
-    element of the causal score sum and 1 per element of the state's decay
-    (exponentials not counted); at Q = 1 that is the recurrence's 5 P^2 + 2 P
-    per step."""
+def rwkv6_work(case, in_bytes: int):
+    """The bytes the WKV function moves (r, k, v at their size, logw, u, the
+    output and the state once) and its least operations over the chunk
+    lengths.  A chunk of Q steps costs 2 per multiply-add of the two
+    (Q,P)x(P,P) products and of the causal output term, 3 per element of
+    the causal score sum and 1 per element of the state's decay
+    (exponentials not counted); at Q = 1 that is the recurrence's
+    5 P^2 + 2 P per step."""
     B, S, H, P, _ = case
     nbytes = in_bytes * 3 * B * S * H * P + 4 * (2 * B * S * H * P + H * P + B * H * P * P)
     per_chunk = lambda Q: (2 * (2 * Q * P * P + Q * (Q + 1) // 2 * P)
                            + 3 * (Q * (Q - 1) // 2) * P + P * P)
-    flops = least_flops_per_step(per_chunk, S) * B * S * H
-    peak = F32_FLOPS if in_bytes == 4 else BF16_FLOPS
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+    return nbytes, least_flops_per_step(per_chunk, S) * B * S * H
+
+
+def rwkv6_bound_ms(case, in_bytes: int):
+    """Least time for the WKV function outside the tensor cores (the kernels
+    line's ``bound_f32_ms``): its bytes over HBM rate vs its least
+    operations over the float32 peak there (the scan computes in float32
+    whatever the type of r, k, v).  Returns (ms, "bytes" | "operations")."""
+    nbytes, flops = rwkv6_work(case, in_bytes)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def rwkv6_tc_bound_ms(case, in_bytes: int):
+    """The WKV bound on the tensor cores, where the kernel does its products
+    (the kernels line's ``bound_ms``): the same bytes vs three times the
+    least operations (split TF32: hi.hi + hi.lo + lo.hi) over the TF32 peak.
+    Returns (ms, "bytes" | "operations")."""
+    nbytes, flops = rwkv6_work(case, in_bytes)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 3 * flops / TF32_FLOPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -560,23 +581,60 @@ def phase2_kernels(torch, gen, build_logs: dict) -> dict:
     out["ssd_fwd"]["bound_f32_ms"], out["ssd_fwd"]["bound_f32_by"] = ssd_bound_ms(ZAMBA_SSD, 4)
     del args
 
+    print("phase 2: RWKV6, tensor-core kernel (rwkv6_fwd_sm90.cu): nvcc -Xptxas -v")
+    rwkv6_lib = rwkv6_ops._kernel()
+    summary = ptxas_summary(build_logs.get("rwkv6_fwd_sm90", ""))
+    if not summary:
+        print("  (no compiler output: the library was built before this run)")
+    for fn, regs, spill_st, spill_ld, smem in summary:
+        code = int(fn.endswith("<bf16>"))
+        print(f"  {fn}: {regs} registers, {spill_st} / {spill_ld} bytes spill stores / loads, "
+              f"{smem} B static + {rwkv6_lib.rwkv6_fwd_sm90_smem_bytes(code)} B dynamic shared "
+              f"memory, {rwkv6_lib.rwkv6_fwd_sm90_blocks_per_sm(code)} block(s) per SM")
+        if spill_st or spill_ld:
+            raise RuntimeError(f"{fn} spills registers")
+    for line in build_logs.get("rwkv6_fwd_sm90", "").splitlines():
+        if "Performance Loss" in line:
+            print("  ptxas:", line.strip()[:160])
     print("phase 2: RWKV6 kernel vs plain version")
     for dtype, tol in ((torch.float32, 2e-4), (torch.bfloat16, 2e-2)):
         for case in RWKV6_SWEEP:
             check_rwkv6(case, dtype, gen, tol)
     check_rwkv6(RWKV6_STRONG, torch.float32, gen, 2e-4, logw=-5.0)
-    err, args = check_rwkv6(RWKV6_SERVE, torch.float32, gen, 2e-4, float64=True)
+    for dtype in (torch.float32, torch.bfloat16):
+        check_rwkv6(RWKV6_STRONG_WIDE, dtype, gen, 2e-4, logw=-5.0, float64=True)
+    # At the serve shape, both dtypes against float64 at 2e-4: bfloat16
+    # inputs are exact in float32, so the kernel's arithmetic is the same.
+    rwkv6 = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        err, args = check_rwkv6(RWKV6_SERVE, dtype, gen, 2e-4, float64=True)
+        kernel = lambda: rwkv6_ops.rwkv6_mix(*args, chunk=RWKV6_SERVE[4])
+        rwkv6[dtype] = dict(max_abs_err=err, ms=graph_ms(kernel), ms_eager=cuda_ms(kernel))
+        if dtype == torch.bfloat16:
+            rwkv6[dtype]["plain_ms"] = cuda_ms(lambda: rwkv6_plain(*args), iters=5, warmup=1)
+        del args
+    f32, bf16 = rwkv6[torch.float32], rwkv6[torch.bfloat16]
     out["rwkv6_fwd"] = dict(
-        max_abs_err=err,
-        ms=cuda_ms(lambda: rwkv6_ops.rwkv6_mix(*args, chunk=RWKV6_SERVE[4])),
-        plain_ms=cuda_ms(lambda: rwkv6_plain(*args), iters=5, warmup=1),
+        max_abs_err=max(f32["max_abs_err"], bf16["max_abs_err"]),
+        ms=bf16["ms"],
+        ms_eager=bf16["ms_eager"],
+        ms_f32=f32["ms"],
+        ms_eager_f32=f32["ms_eager"],
+        plain_ms=bf16["plain_ms"],
         library_ms=None,
     )
-    out["rwkv6_fwd"]["bound_ms"], out["rwkv6_fwd"]["bound_by"] = rwkv6_bound_ms(RWKV6_SERVE, 4)
-    del args
+    m = out["rwkv6_fwd"]
+    m["bound_ms"], m["bound_by"] = rwkv6_tc_bound_ms(RWKV6_SERVE, 2)
+    m["bound_f32_inputs_ms"], _ = rwkv6_tc_bound_ms(RWKV6_SERVE, 4)
+    m["bound_f32_ms"], m["bound_f32_by"] = rwkv6_bound_ms(RWKV6_SERVE, 2)
+    print(f"  rwkv6_fwd at {RWKV6_SERVE} with float32 r, k, v: kernel {f32['ms']:.4f} ms "
+          f"graph-replayed / {f32['ms_eager']:.4f} ms eager, tensor-core bound "
+          f"{m['bound_f32_inputs_ms']:.4f} ms", flush=True)
 
-    for name, shape in (("flash_fwd", GRANITE_ATTN[:5]), ("flash_fwd hd80", ZAMBA_ATTN[:5]),
-                        ("ssd_fwd", ZAMBA_SSD), ("rwkv6_fwd", RWKV6_SERVE)):
+    for label, name, shape in (("flash_fwd", "flash_fwd", GRANITE_ATTN[:5]),
+                               ("flash_fwd hd80", "flash_fwd hd80", ZAMBA_ATTN[:5]),
+                               ("ssd_fwd", "ssd_fwd", ZAMBA_SSD),
+                               ("rwkv6_fwd bf16 r, k, v", "rwkv6_fwd", RWKV6_SERVE)):
         m = out[name]
         kernel = f"kernel {m['ms']:.4f} ms"
         if "ms_eager" in m:
@@ -588,7 +646,7 @@ def phase2_kernels(torch, gen, build_logs: dict) -> dict:
         if "bound_f32_ms" in m:
             bound += (f" on the tensor cores in split TF32, {m['bound_f32_ms']:.4f} ms "
                       f"({m['bound_f32_by']}) at the float32 rate")
-        print(f"  {name} at {shape}: {kernel}, plain {m['plain_ms']:.4f} ms, library {library}, "
+        print(f"  {label} at {shape}: {kernel}, plain {m['plain_ms']:.4f} ms, library {library}, "
               f"{bound}", flush=True)
     return out
 
@@ -719,7 +777,7 @@ def main() -> int:
                       "src/repro/kernels/attention/flash.py:33"),
         "ssd_fwd": ("src/repro_torch/kernels/ssd/csrc/ssd_fwd_sm90.cu",
                     "src/repro/kernels/ssd/chunked.py:30"),
-        "rwkv6_fwd": ("src/repro_torch/kernels/rwkv6/csrc/rwkv6_fwd.cu",
+        "rwkv6_fwd": ("src/repro_torch/kernels/rwkv6/csrc/rwkv6_fwd_sm90.cu",
                       "src/repro/kernels/rwkv6/chunked.py:34"),
     }
     kernels = []
@@ -740,7 +798,8 @@ def main() -> int:
             "bound_by": m["bound_by"],
             "library_ms": m["library_ms"],
             **{key: m[key] for key in ("ms_eager", "library_ms_eager", "at_zamba2_hd80",
-                                       "bound_f32_ms", "bound_f32_by") if key in m},
+                                       "bound_f32_ms", "bound_f32_by", "ms_f32", "ms_eager_f32",
+                                       "bound_f32_inputs_ms") if key in m},
         })
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -1,1 +1,1 @@
-"""RWKV6 WKV chunked scan: CUDA kernel (``csrc/rwkv6_fwd.cu``), wrapper and plain version."""
+"""RWKV6 WKV chunked scan: tensor-core CUDA kernel (``csrc/rwkv6_fwd_sm90.cu``), wrapper and plain versions."""

@@ -3,12 +3,19 @@
 
 Takes the model's ``(B, S, H, P)`` layout and returns the output in it,
 with the final state head-major, as the JAX wrapper does.  A CUDA tensor
-goes to the hand-written kernel ``csrc/rwkv6_fwd.cu`` (built at first use),
-which reads the model layout directly, so no transposes run around the
-launch; a CPU tensor goes to the plain PyTorch version in ``ref.py``.
-There is no fallback from one to the other: on the card the kernel runs or
-the call raises.  ``launches`` counts kernel launches (plain-version calls
-are not counted).
+goes to the hand-written tensor-core kernel ``csrc/rwkv6_fwd_sm90.cu`` (TMA
+and split-TF32 ``wgmma``, built at first use), which reads the model layout
+directly, so no transposes run around the launch; a CPU tensor goes to the
+plain PyTorch version in ``ref.py``.  There is no fallback from one to the
+other: on the card the kernel runs or the call raises.  ``launches`` counts
+kernel launches (plain-version calls are not counted).
+
+The kernel reads r, k, v in float32 or bfloat16 as given (bfloat16 converts
+exactly), logw and u in float32.  A head dim that TMA's 16-byte strides
+cannot take (a multiple of 4 in float32, of 8 in bfloat16) is padded with
+zeros, which add nothing to the output or the state.  It runs chunks of 64
+steps whatever ``chunk`` is, since the result does not depend on the chunk
+length; ``chunk`` is checked as the JAX wrapper checks it.
 """
 
 from __future__ import annotations
@@ -18,6 +25,7 @@ from functools import lru_cache
 from typing import Tuple
 
 import torch
+import torch.nn.functional as F
 
 from .ref import rwkv6_reference
 
@@ -25,21 +33,29 @@ from .ref import rwkv6_reference
 # 0 before it drives the main path).
 launches = 0
 
-MAX_CHUNK = 64
 MAX_HEAD_DIM = 64
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_HEAD_DIM_MULTIPLE = {torch.float32: 4, torch.bfloat16: 8}  # 16-byte TMA strides
 
 
 @lru_cache(maxsize=None)
 def _kernel():
     from repro_torch.kernels import _build
 
-    lib = _build.library("rwkv6_fwd")
-    fn = lib.rwkv6_fwd
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    return bind(_build.library("rwkv6_fwd_sm90"))
+
+
+def bind(lib):
+    """Declare the C signatures of a loaded ``rwkv6_fwd_sm90`` library (the
+    built kernel, or a variant of it built by ``tools/rwkv6_sm90_ablate.py``)."""
+    fn = lib.rwkv6_fwd_sm90
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    lib.rwkv6_fwd_error_string.argtypes = [ctypes.c_int]
-    lib.rwkv6_fwd_error_string.restype = ctypes.c_char_p
+    lib.rwkv6_fwd_sm90_error_string.argtypes = [ctypes.c_int]
+    lib.rwkv6_fwd_sm90_error_string.restype = ctypes.c_char_p
+    for name in ("rwkv6_fwd_sm90_smem_bytes", "rwkv6_fwd_sm90_blocks_per_sm"):
+        getattr(lib, name).argtypes = [ctypes.c_int]
+        getattr(lib, name).restype = ctypes.c_int
     return lib
 
 
@@ -84,29 +100,41 @@ def rwkv6_mix(
     if r.device.type != "cuda":
         raise ValueError(f"rwkv6_mix runs on cuda or cpu, not {r.device}")
     B, S, H, P = r.shape
-    if Q > MAX_CHUNK or P > MAX_HEAD_DIM:
-        raise NotImplementedError(
-            f"chunk {Q} / head dim {P} above the kernel's {MAX_CHUNK} / {MAX_HEAD_DIM}"
-        )
+    if P > MAX_HEAD_DIM:
+        raise NotImplementedError(f"head dim {P} above the kernel's {MAX_HEAD_DIM}")
     if k.dtype != r.dtype or v.dtype != r.dtype:
         raise TypeError(f"r, k, v must share a dtype; got {r.dtype}, {k.dtype}, {v.dtype}")
     for name, t in (("r", r), ("k", k), ("v", v), ("logw", logw)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    logw = logw.float()
-    u = u.float().contiguous()
-    out = torch.empty((B, S, H, P), dtype=torch.float32, device=r.device)
-    state = torch.empty((B, H, P, P), dtype=torch.float32, device=r.device)
+    r, k, v, logw, u = kernel_inputs(r, k, v, logw, u)
+    P4 = r.shape[3]
+    out = torch.empty((B, S, H, P4), dtype=torch.float32, device=r.device)
+    state = torch.empty((B, H, P4, P4), dtype=torch.float32, device=r.device)
     lib = _kernel()
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream(r.device).cuda_stream
-        err = lib.rwkv6_fwd(
+        err = lib.rwkv6_fwd_sm90(
             r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(), u.data_ptr(),
-            out.data_ptr(), state.data_ptr(), B, S, H, P, Q, _DTYPE_CODES[r.dtype], stream,
+            out.data_ptr(), state.data_ptr(), B, S, H, P4, _DTYPE_CODES[r.dtype], stream,
         )
     if err != 0:
         raise RuntimeError(
-            f"rwkv6_fwd launch failed: {lib.rwkv6_fwd_error_string(err).decode()} (cudaError {err})"
+            f"rwkv6_fwd_sm90 launch failed: {lib.rwkv6_fwd_sm90_error_string(err).decode()} "
+            f"(cudaError {err})"
         )
     launches += 1
+    if P4 != P:
+        out, state = out[..., :P].contiguous(), state[:, :, :P, :P].contiguous()
     return out, state
+
+
+def kernel_inputs(r, k, v, logw, u):
+    """r, k, v, logw, u as the kernel reads them: logw and u in float32, the
+    head dim padded with zeros to what TMA's 16-byte strides take (a copy
+    only where it must be padded)."""
+    pad = -r.shape[3] % _HEAD_DIM_MULTIPLE[r.dtype]
+    logw, u = logw.float(), u.float().contiguous()
+    if pad:
+        r, k, v, logw, u = (F.pad(t, (0, pad)) for t in (r, k, v, logw, u))
+    return r, k, v, logw, u

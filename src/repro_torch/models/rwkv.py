@@ -14,8 +14,10 @@ Scan paths (``impl``):
                form, with an initial state and logw=0 padding;
 * ``kernel`` — a full-sequence call from a zero state goes to
                ``kernels.rwkv6.ops.rwkv6_mix`` (the hand-written CUDA kernel;
-               its plain version on the CPU).  A call with a carried state
-               (one-token decode) always takes the torch path.
+               its plain version on the CPU), with r, k, v in the activation
+               type (the kernel converts bfloat16 exactly) and logw in
+               float32.  A call with a carried state (one-token decode)
+               always takes the torch path.
 """
 
 from __future__ import annotations
@@ -155,7 +157,7 @@ def apply_time_mix(
     logw = logw.reshape(B, S, H, P)
     u = p["u"].reshape(H, P)
     if use_kernel:
-        out, state = _wkv_kernel(r.float(), k.float(), v.float(), logw, u, chunk)
+        out, state = _wkv_kernel(r, k, v, logw, u, chunk)
     else:
         if state0 is None:
             state0 = torch.zeros((B, H, P, P), dtype=torch.float32, device=x.device)

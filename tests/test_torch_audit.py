@@ -89,7 +89,7 @@ def test_kernel_sources_ship_with_the_package():
     assert names == [
         "kernels/attention/csrc/flash_fwd.cu",
         "kernels/attention/csrc/flash_fwd_sm90.cu",
-        "kernels/rwkv6/csrc/rwkv6_fwd.cu",
+        "kernels/rwkv6/csrc/rwkv6_fwd_sm90.cu",
         "kernels/ssd/csrc/ssd_fwd_sm90.cu",
     ]
     assert "repro_torch" in (REPO / "pyproject.toml").read_text()

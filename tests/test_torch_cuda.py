@@ -71,6 +71,14 @@ RWKV6_CASES = [  # (B, S, H, P, chunk), tests/test_kernels.py:74-77, then rwkv6-
     (1, 96, 1, 32, 32),
     (1, 32, 2, 8, 32),
     (1, 128, 4, 64, 32),
+    (1, 96, 2, 64, 32),  # S not a multiple of the kernel's 64-step chunks
+    (2, 32, 3, 64, 16),  # S below one chunk
+    (1, 128, 2, 64, 16),  # chunks 16, 64, 128: the result does not depend on the chunk
+    (1, 256, 2, 64, 64),
+    (1, 256, 2, 64, 128),
+    (1, 64, 2, 18, 32),  # P = 18: padded for TMA's 16-byte strides
+    (3, 128, 5, 64, 64),  # B * H = 15 blocks, odd
+    (1, 512, 2, 64, 64),  # rwkv6's widths over eight chunks (with logw = -5 too)
 ]
 
 
@@ -258,3 +266,21 @@ def test_kernel_prefill_matches_torch_path_bf16(cuda, name):
     assert ops.launches - before == want
     assert ops.tensor_core_launches - before_tc == want
     torch.testing.assert_close(fast.float(), plain.float(), atol=2e-2, rtol=2e-2)
+
+
+def test_rwkv6_time_mix_kernel_route_takes_chunk_128(cuda):
+    """``apply_time_mix``'s default chunk (128) runs on the kernel route on
+    the card, with bfloat16 activations, and agrees with the torch route."""
+    from repro_torch.models import rwkv
+
+    cfg = get_arch("rwkv6-3b").reduced()
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    p = rwkv.init_time_mix(gen, cfg, torch.bfloat16, "cuda")
+    x = torch.randn(2, 256, cfg.d_model, generator=gen, device="cuda").to(torch.bfloat16)
+    prev = torch.zeros(2, cfg.d_model, dtype=torch.bfloat16, device="cuda")
+    before = rwkv6_ops.launches
+    out_k, st_k, _ = rwkv.apply_time_mix(p, x, cfg, prev, None, impl="kernel")
+    assert rwkv6_ops.launches == before + 1
+    out_t, st_t, _ = rwkv.apply_time_mix(p, x, cfg, prev, None, impl="torch")
+    torch.testing.assert_close(st_k, st_t, atol=2e-4, rtol=2e-4)
+    torch.testing.assert_close(out_k.float(), out_t.float(), atol=2e-2, rtol=2e-2)
