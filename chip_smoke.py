@@ -45,6 +45,24 @@ Phases, in order; any failure raises and the script exits non-zero:
    loop (teacher-forced prefill and greedy decode) at full width with
    torch.profiler: device busy time, the device's idle share and the kernels
    that take the most time.
+5. Training.  (a) Two train steps of the reduced float32 granite-3-8b,
+   zamba2-2.7b and rwkv6-3b on the card and on the CPU from the same
+   parameters (rwkv6 in two microbatches): loss, grad norm and every
+   parameter leaf within 2e-4 + 2e-4 * |want|.  (b) Full width, 8 x 512
+   tokens, 4 steps: rwkv6-3b (2 microbatches) and zamba2-2.7b (1) through
+   the trainer's CLI (``repro_torch.launch.train.main``), and granite-3-8b
+   with 8 of its 40 layers through ``make_train_step`` (all 40 cannot fit:
+   16.3 GB of bf16 parameters and 65.4 GB of float32 moments); each prints
+   ms per step after step 0, tokens/s, mfu_6nt (6 N T over the step time
+   and 989 TFLOP/s; remat's recompute not counted), peak memory and its
+   losses, which must be finite.  (c) The eval step through the kernels at
+   full width against the torch paths' eval loss, within 2e-2 + 2e-2 *
+   |want|, with exact launch counts (granite 8 layers: flash 8; zamba2: ssd
+   54 + flash 9; rwkv6: 32).  (d) A checkpoint round trip of (params,
+   optimizer state) on the card, reduced zamba2-2.7b, exact.  (e) Where a
+   full-width step's time goes, for each of the three: the gradient pass
+   and the AdamW update timed apart, the forward alone, and under
+   torch.profiler the device's busy time, idle share and top kernels.
 
 The line before the last is a JSON object with each kernel's launches on the
 main path, error, times and bound; the last line names the device.  With no
@@ -99,6 +117,11 @@ RWKV6_STRONG_WIDE = (1, 512, 2, 64, 64)  # logw = -5 at rwkv6's widths, eight 64
 RWKV6_SERVE = (8, 512, 40, 64, 32)  # rwkv6-3b's prompt forward, per layer
 
 SERVE_ARCHS = ["granite-3-8b", "zamba2-2.7b", "rwkv6-3b"]
+
+TRAIN_CPU_CHECK = [("granite-3-8b", 1), ("zamba2-2.7b", 1), ("rwkv6-3b", 2)]  # (arch, microbatches)
+TRAIN_FULL_CLI = [("rwkv6-3b", 2), ("zamba2-2.7b", 1)]  # full width through launch.train.main
+GRANITE_TRAIN_LAYERS = 8  # of 40: the most that fits with float32 moments on one 80 GB card
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 4
 
 
 def serve_args(arch: str):
@@ -697,7 +720,286 @@ def phase3_serve(torch, arch: str, counters: dict) -> dict:
     return launches
 
 
+class Tee:
+    """A text stream that writes through to ``out`` and keeps a copy."""
+
+    def __init__(self, out):
+        self.out, self.parts = out, []
+
+    def write(self, text: str) -> int:
+        self.parts.append(text)
+        return self.out.write(text)
+
+    def flush(self) -> None:
+        self.out.flush()
+
+    def text(self) -> str:
+        return "".join(self.parts)
+
+
+def train_numbers(step_ms, losses, n_params: int, peak_bytes: int) -> dict:
+    """ms per step after step 0, tokens/s and mfu_6nt (6 N T over the step
+    time and the bf16 peak; remat's recomputed forward is not counted) of a
+    full-width run of TRAIN_BATCH x TRAIN_SEQ tokens per step."""
+    import math
+
+    if len(step_ms) != TRAIN_STEPS or not all(math.isfinite(x) for x in losses):
+        raise RuntimeError(f"training run: {len(step_ms)} steps timed, losses {losses}")
+    ms = sum(step_ms[1:]) / len(step_ms[1:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    return {
+        "ms_per_step": ms,
+        "step_ms": step_ms,
+        "tokens_per_s": tokens / (ms / 1e3),
+        "mfu_6nt": 6 * n_params * tokens / (ms / 1e3) / BF16_FLOPS,
+        "peak_gib": peak_bytes / 2**30,
+        "params": n_params,
+        "losses": losses,
+    }
+
+
+def phase5a_card_against_cpu(torch) -> None:
+    """Two train steps of each reduced float32 config on the card and on the
+    CPU from the same parameters and batches."""
+    import dataclasses
+
+    from repro_torch import tree
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.train import make_train_step
+
+    for arch, microbatches in TRAIN_CPU_CHECK:
+        cfg = dataclasses.replace(get_arch(arch).reduced(), param_dtype="float32",
+                                  activation_dtype="float32")
+        start = build_model(cfg).init(0, device="cpu")
+        tokens = torch.randint(0, cfg.vocab_size, (2, 4, 64), generator=torch.Generator().manual_seed(3))
+        out = {}
+        for device in ("cpu", "cuda"):
+            params = tree.tree_map(lambda p: p.to(device, copy=True), start)
+            state = adamw.init(params)
+            step = make_train_step(build_model(cfg), adamw.AdamWConfig(lr=1e-3, warmup_steps=1),
+                                   microbatches)
+            for i in range(2):
+                params, state, metrics = step(params, state, {"tokens": tokens[i].to(device)})
+            out[device] = (metrics, params)
+        (m_cpu, p_cpu), (m_gpu, p_gpu) = out["cpu"], out["cuda"]
+        label = f"phase 5a: {cfg.name} f32, {microbatches} microbatch(es), 2 steps, card vs CPU"
+        err = 0.0
+        for key in ("loss", "grad_norm"):
+            err = max(err, check_close(f"{label} {key}", m_gpu[key].cpu(), m_cpu[key], 2e-4))
+        worst = 0.0
+        for (path, a), b in zip(tree.leaves_with_path(p_gpu), tree.leaves(p_cpu)):
+            want = b.double()
+            diff = (a.cpu().double() - want).abs()
+            worst = max(worst, float(diff.max()))
+            if bool((diff > 2e-4 + 2e-4 * want.abs()).any()):
+                raise RuntimeError(f"{label}: parameter {path} differs by {float(diff.max())}")
+        print(f"  {label}: every parameter leaf within 2e-4 + 2e-4 * |want|, max |err| {worst:.3g}",
+              flush=True)
+
+
+def phase5b_train_cli(torch, arch: str, microbatches: int) -> dict:
+    """Full-width training through the trainer's CLI, as a user runs it."""
+    import contextlib
+
+    from repro_torch.launch import train
+
+    argv = ["--arch", arch, "--full", "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+            "--steps", str(TRAIN_STEPS), "--microbatches", str(microbatches), "--device", "cuda",
+            "--log-every", "1"]
+    print(f"phase 5b: python -m repro_torch.launch.train {' '.join(argv)}", flush=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tee = Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        first, last = train.main(argv)
+    text = tee.text()
+    steps = re.findall(r"^step\s+\d+ loss (\S+) gnorm \S+ lr \S+ (\S+) ms$", text, re.M)
+    n_params = round(float(re.search(r"params=(\S+)M", text).group(1)) * 1e6)
+    numbers = train_numbers([float(ms) for _, ms in steps], [float(l) for l, _ in steps] + [first, last],
+                            n_params, torch.cuda.max_memory_allocated())
+    numbers["microbatches"] = microbatches
+    return numbers
+
+
+def phase5b_granite_layers(torch) -> dict:
+    """granite-3-8b at full width with GRANITE_TRAIN_LAYERS layers through
+    make_train_step, on the trainer's data and optimizer settings."""
+    import dataclasses
+
+    from repro_torch import tree
+    from repro_torch.configs import get_arch
+    from repro_torch.data import DataConfig, make_batch
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig, adamw
+    from repro_torch.train import make_train_step
+
+    cfg = dataclasses.replace(get_arch("granite-3-8b"), n_layers=GRANITE_TRAIN_LAYERS)
+    print(f"phase 5b: granite-3-8b, {cfg.n_layers} of 40 layers at full width, make_train_step",
+          flush=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg)
+    params = model.init(0, device="cuda")
+    state = adamw.init(params)
+    step = make_train_step(model, AdamWConfig(lr=3e-3, warmup_steps=1, total_steps=TRAIN_STEPS,
+                                              weight_decay=0.01))
+    data = DataConfig(seed=0, global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ)
+    step_ms, losses = [], []
+    for i in range(TRAIN_STEPS):
+        tokens = torch.from_numpy(make_batch(cfg, data, i)["tokens"]).long().cuda()
+        t0 = time.perf_counter()
+        params, state, metrics = step(params, state, {"tokens": tokens})
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(metrics["loss"]))
+        print(f"  step {i} loss {losses[-1]:.6f} gnorm {float(metrics['grad_norm']):.6f} "
+              f"{step_ms[-1]:.3f} ms", flush=True)
+    n_params = sum(p.numel() for p in tree.leaves(params))
+    numbers = train_numbers(step_ms, losses, n_params, torch.cuda.max_memory_allocated())
+    numbers["microbatches"] = 1
+    del params, state
+    return numbers
+
+
+def profile_train_step(torch, cfg, microbatches: int) -> dict:
+    """Where one full-width train step's time goes: the step's wall time
+    (warm, after synchronize), its gradient pass (forward, remat recompute
+    and backward, every microbatch) and its AdamW update timed apart, the
+    torch-path forward alone (the eval step), and under torch.profiler the
+    device's busy time, idle share and the kernels that take the most."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import tree
+    from repro_torch.data import DataConfig, make_batch
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig, adamw
+    from repro_torch.train import make_eval_step, make_train_step
+    from repro_torch.train import steps as train_steps
+
+    torch.cuda.empty_cache()
+    model = build_model(cfg)
+    params = model.init(3, device="cuda")
+    state = adamw.init(params)
+    opt_cfg = AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=TRAIN_STEPS, weight_decay=0.01)
+    step = make_train_step(model, opt_cfg, microbatches)
+    batch = {"tokens": torch.from_numpy(
+        make_batch(cfg, DataConfig(seed=3, global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ), 0)["tokens"]
+    ).long().cuda()}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3, out
+
+    params, state, _ = step(params, state, batch)  # warm-up
+    step_ms, (params, state, _) = timed(lambda: step(params, state, batch))
+
+    def grads_pass():
+        if microbatches == 1:
+            return train_steps._grads(model, params, batch)[2]
+        acc = [torch.zeros(p.shape, dtype=torch.float32, device="cuda") for p in tree.leaves(params)]
+        for i in range(microbatches):
+            for a, g in zip(acc, train_steps._grads(
+                    model, params, train_steps._microbatch(batch, microbatches, i))[2]):
+                a.add_(g)
+        return [a.div_(microbatches) for a in acc]
+
+    grads_ms, grads = timed(grads_pass)
+    update_ms, _ = timed(lambda: adamw.update(opt_cfg, tree.unflatten(params, grads), state, params))
+    del grads
+    forward_ms, _ = timed(lambda: make_eval_step(model)(params, batch))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        params, state, _ = step(params, state, batch)
+        torch.cuda.synchronize()
+    by_name = device_time_by_kernel(prof)
+    busy_us = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    del params, state
+    return {
+        "step_ms": step_ms,
+        "grads_ms": grads_ms,
+        "update_ms": update_ms,
+        "forward_ms": forward_ms,
+        "device_busy_ms": busy_us / 1e3,
+        "device_idle_share": 1.0 - busy_us / 1e3 / step_ms,
+        "kernel_launches": sum(1 for e in prof.events()
+                               if e.device_type == torch.autograd.DeviceType.CUDA),
+        "top_kernels_ms": [(name[:60], us / 1e3) for name, us in top],
+    }
+
+
+def phase5c_eval(torch, cfg, counters: dict) -> dict:
+    """The eval step through the kernels at full width against the torch
+    paths' eval loss; returns the kernels' launch counts."""
+    from repro_torch.data import DataConfig, make_batch
+    from repro_torch.models import build_model
+    from repro_torch.train import make_eval_step
+
+    torch.cuda.empty_cache()
+    params = build_model(cfg).init(1, device="cuda")
+    batch = {"tokens": torch.from_numpy(
+        make_batch(cfg, DataConfig(seed=1, global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ), 0)["tokens"]
+    ).long().cuda()}
+    for mod in counters.values():
+        mod.launches = 0
+    counters["flash_fwd"].tensor_core_launches = 0
+    fast = make_eval_step(build_model(cfg, impl="kernel"))(params, batch)["loss"]
+    launches = {name: mod.launches for name, mod in counters.items()}
+    want = expected_launches(cfg)
+    if launches != want:
+        raise RuntimeError(f"{cfg.name} eval: kernel launches {launches}, expected {want}")
+    if counters["flash_fwd"].tensor_core_launches != launches["flash_fwd"]:
+        raise RuntimeError(f"{cfg.name} eval: flash launches off the bf16 tensor-core kernel")
+    plain = make_eval_step(build_model(cfg))(params, batch)["loss"]
+    err = check_close(f"phase 5c: {cfg.name} ({cfg.n_layers} layers) eval loss, kernels vs torch "
+                      f"paths, {TRAIN_BATCH} x {TRAIN_SEQ} tokens, launches {launches}",
+                      fast.cpu().reshape(1), plain.cpu().reshape(1), 2e-2)
+    print(f"    kernel eval loss {float(fast):.6f}, torch-path eval loss {float(plain):.6f}, "
+          f"|diff| {err:.3g}", flush=True)
+    del params
+    return launches
+
+
+def phase5d_checkpoint(torch) -> None:
+    """A CheckpointManager round trip of (params, optimizer state) after one
+    train step, on the card, reduced zamba2-2.7b (bf16): exact."""
+    import tempfile
+
+    from repro_torch import tree
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model, synthetic_batch
+    from repro_torch.optim import adamw
+    from repro_torch.train import make_train_step
+
+    cfg = get_arch("zamba2-2.7b").reduced()
+    params = build_model(cfg).init(2, device="cuda")
+    state = adamw.init(params)
+    step = make_train_step(build_model(cfg), adamw.AdamWConfig(warmup_steps=1))
+    params, state, _ = step(params, state, synthetic_batch(cfg, 4, 32, seed=2, device="cuda"))
+    with tempfile.TemporaryDirectory() as root:
+        mgr = CheckpointManager(root)
+        mgr.save_async(1, (params, state)).result()
+        mgr.close()
+        restored_step, restored = mgr.restore(tree.tree_map(torch.zeros_like, (params, state)))
+    n = 0
+    for (path, a), b in zip(tree.leaves_with_path(restored), tree.leaves((params, state))):
+        if a.device != b.device or a.dtype != b.dtype or not torch.equal(a, b):
+            raise RuntimeError(f"phase 5d: checkpoint leaf {path} did not round-trip exactly")
+        n += 1
+    if restored_step != 1:
+        raise RuntimeError(f"phase 5d: restored step {restored_step}")
+    print(f"phase 5d: checkpoint round trip of {cfg.name} (params, AdamW state) on the card: "
+          f"{n} leaves exact (dtype, device, values)", flush=True)
+
+
 def main() -> int:
+    import dataclasses
+
     import torch
 
     if not torch.cuda.is_available():
@@ -771,6 +1073,37 @@ def main() -> int:
         for name, ms in prof["top_kernels_ms_per_step"]:
             print(f"  {ms:8.4f} ms/step  {name}")
     print(f"phase 4: wall {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    # -- phase 5: training ------------------------------------------------------
+    t_phase = time.perf_counter()
+    print(f"phase 5: training on {smi}", flush=True)
+    phase5a_card_against_cpu(torch)
+    training = {arch: phase5b_train_cli(torch, arch, mb) for arch, mb in TRAIN_FULL_CLI}
+    training[f"granite-3-8b ({GRANITE_TRAIN_LAYERS} layers)"] = phase5b_granite_layers(torch)
+    print(f"phase 5b: training at full width, {TRAIN_BATCH} x {TRAIN_SEQ} tokens per step, "
+          f"{TRAIN_STEPS} steps, on {smi}:")
+    for name, m in training.items():
+        print(f"  {name}: {m['params'] / 1e9:.3f} B parameters, {m['microbatches']} microbatch(es): "
+              f"{m['ms_per_step']:.3f} ms/step after step 0 (steps {[round(x, 3) for x in m['step_ms']]}), "
+              f"{m['tokens_per_s']:.1f} tokens/s, mfu_6nt {m['mfu_6nt']:.4f}, peak memory "
+              f"{m['peak_gib']:.2f} GiB, losses {[round(x, 4) for x in m['losses']]}", flush=True)
+    train_cfgs = {"rwkv6-3b": get_arch("rwkv6-3b"), "zamba2-2.7b": get_arch("zamba2-2.7b"),
+                  f"granite-3-8b ({GRANITE_TRAIN_LAYERS} layers)": dataclasses.replace(
+                      get_arch("granite-3-8b"), n_layers=GRANITE_TRAIN_LAYERS)}
+    for name, cfg in train_cfgs.items():
+        by_path[f"train-eval {cfg.name} ({cfg.n_layers} layers)"] = phase5c_eval(torch, cfg, counters)
+    phase5d_checkpoint(torch)
+    for name, cfg in train_cfgs.items():
+        p = training[name]["profile"] = profile_train_step(torch, cfg, training[name]["microbatches"])
+        print(f"phase 5e: {name} train step, {training[name]['microbatches']} microbatch(es), on "
+              f"{smi}: {p['step_ms']:.3f} ms wall; gradient pass {p['grads_ms']:.3f} ms, AdamW "
+              f"update {p['update_ms']:.3f} ms, torch-path forward alone {p['forward_ms']:.3f} ms; "
+              f"device busy {p['device_busy_ms']:.3f} ms, idle share {p['device_idle_share']:.3f}, "
+              f"{p['kernel_launches']} kernels", flush=True)
+        for kernel, ms in p["top_kernels_ms"]:
+            print(f"  {ms:10.3f} ms  {kernel}")
+    print(json.dumps({"training": training, "card": smi}))
+    print(f"phase 5: wall {time.perf_counter() - t_phase:.1f} s", flush=True)
 
     sources = {
         "flash_fwd": ("src/repro_torch/kernels/attention/csrc/flash_fwd_sm90.cu",

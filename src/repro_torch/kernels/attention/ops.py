@@ -22,6 +22,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import refuse_autograd
+
 from .ref import attention_reference
 
 # Kernel launches since the counters were last reset (chip_smoke.py sets
@@ -94,6 +96,7 @@ def flash_attention(
     S = q.shape[1]
     blk_q, blk_k = min(blk_q, S), min(blk_k, S)
     _check(q, k, v, blk_q, blk_k, window)
+    refuse_autograd("flash_attention", q, k, v)
     if q.device.type == "cpu":
         out = attention_reference(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),

@@ -27,6 +27,8 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import refuse_autograd
+
 from .ref import rwkv6_reference
 
 # Kernel launches since the counter was last reset (chip_smoke.py sets it to
@@ -93,6 +95,7 @@ def rwkv6_mix(
     S = r.shape[1]
     Q = min(chunk, S)
     _check(r, k, v, logw, u, Q)
+    refuse_autograd("rwkv6_mix", r, k, v, logw, u)
     if r.device.type == "cpu":
         tr = lambda t: t.transpose(1, 2)
         out, state = rwkv6_reference(tr(r), tr(k), tr(v), tr(logw), u)

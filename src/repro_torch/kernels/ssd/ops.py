@@ -27,6 +27,8 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import refuse_autograd
+
 from .ref import ssd_reference
 
 # Kernel launches since the counter was last reset (chip_smoke.py sets it to
@@ -120,6 +122,7 @@ def ssd_scan(
     S = xh.shape[1]
     Q = min(chunk, S)
     _check(xh, dt, A, bm, cm, Q)
+    refuse_autograd("ssd_scan", xh, dt, A, bm, cm)
     if xh.device.type == "cpu":
         dtf = dt.float()
         xw = (xh.float() * dtf[..., None]).transpose(1, 2)

@@ -15,7 +15,14 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from .layers import apply_norm, embed_init, init_norm
 from .rwkv import apply_rwkv_block, init_rwkv_block
-from .transformer import _torch_dtype, embed_inputs, layer_params, logits_from_hidden
+from .transformer import (
+    _torch_dtype,
+    embed_inputs,
+    layer_params,
+    logits_from_hidden,
+    remat_body,
+    unstack,
+)
 
 PyTree = Any
 
@@ -33,18 +40,31 @@ def init_params(gen: torch.Generator, cfg: ArchConfig, device) -> PyTree:
     return p
 
 
+def _layer(layer_p: PyTree, x: torch.Tensor, cfg: ArchConfig, impl: str) -> torch.Tensor:
+    """One RWKV6 block from a zero state."""
+    return apply_rwkv_block(layer_p, x, cfg, None, impl=impl)[0]
+
+
 def forward(
     p: PyTree,
     cfg: ArchConfig,
     batch: Dict[str, torch.Tensor],
     impl: str = "torch",
+    remat: str = "block",
+    return_hidden: bool = False,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Prefill forward pass: every layer starts from a zero state (the whole
-    sequence is processed at once)."""
+    """Training / prefill forward pass: every layer starts from a zero
+    state (the whole sequence is processed at once).  ``remat="block"``
+    recomputes each block in the backward pass, as JAX checkpoints its scan
+    body.  Returns (logits, aux), or the final-normed hidden states with
+    ``return_hidden``."""
     x = apply_norm(p["embed_norm"], embed_inputs(p, cfg, batch), cfg)
-    for i in range(cfg.n_layers):
-        x, _ = apply_rwkv_block(layer_params(p["layers"], i), x, cfg, None, impl=impl)
+    body = remat_body(_layer, remat)
+    for layer_p in unstack(p["layers"]):
+        x = body(layer_p, x, cfg, impl)
     x = apply_norm(p["final_norm"], x, cfg)
+    if return_hidden:
+        return x, {}
     return logits_from_hidden(p, cfg, x), {}
 
 

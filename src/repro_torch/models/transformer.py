@@ -4,14 +4,20 @@
 Parameters keep the JAX layout: every block's leaves are stacked on a
 leading layer axis, so a JAX parameter tree converts leaf for leaf
 (``repro_torch.interop``).  Where JAX scans over that axis, the port loops
-over it in Python and indexes each leaf (a view, no copy).
+over it in Python over per-layer views (``unstack``; ``layer_params`` in
+decode).
+
+``remat="block"`` recomputes each layer body in the backward pass, as JAX's
+``jax.checkpoint`` around the scan body does; it acts only while autograd
+records, so a forward under ``inference_mode`` (serving) is untouched.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Callable, Dict, List, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from .layers import (
@@ -44,6 +50,35 @@ def layer_params(layers: PyTree, i: int) -> PyTree:
     if isinstance(layers, dict):
         return {k: layer_params(v, i) for k, v in layers.items()}
     return layers[i]
+
+
+def unstack(layers: PyTree, lead: int = 1) -> List[PyTree]:
+    """Every layer's parameters, as views: one ``unbind`` per stacked leaf
+    over its first ``lead`` axes taken as one.  Under autograd the backward
+    of each leaf is then one ``stack``, where indexing layer by layer
+    (``layer_params``) zero-fills a tensor of the whole leaf for every
+    layer."""
+    if isinstance(layers, dict):
+        per_key = {k: unstack(v, lead) for k, v in layers.items()}
+        n = len(next(iter(per_key.values())))
+        return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
+    return list(layers.flatten(0, lead - 1).unbind(0))
+
+
+def remat_body(body: Callable, remat: str) -> Callable:
+    """``body`` under a remat policy: ``"block"`` wraps it in non-reentrant
+    ``torch.utils.checkpoint`` while autograd records (its activations are
+    recomputed in the backward pass), ``"none"`` keeps them."""
+    if remat == "dots":
+        raise NotImplementedError(
+            "remat='dots' (checkpoint_dots_with_no_batch_dims) serves the dry-run, "
+            "which the port does not have yet"
+        )
+    if remat not in ("block", "none"):
+        raise ValueError(f"unknown remat policy {remat!r} (block | none)")
+    if remat == "none" or not torch.is_grad_enabled():
+        return body
+    return lambda *args: torch.utils.checkpoint.checkpoint(body, *args, use_reentrant=False)
 
 
 # ---------------------------------------------------------------------------
@@ -132,14 +167,21 @@ def forward(
     cfg: ArchConfig,
     batch: Dict[str, torch.Tensor],
     impl: str = "torch",
+    remat: str = "block",
+    return_hidden: bool = False,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Training / prefill forward pass.  Returns (logits, aux)."""
+    """Training / prefill forward pass.  Returns (logits, aux), or the
+    final-normed hidden states in place of the logits with
+    ``return_hidden``."""
     _check_family(cfg)
     x = embed_inputs(p, cfg, batch)
     positions = torch.arange(x.shape[1], device=x.device)
-    for i in range(cfg.n_layers):
-        x = apply_block(layer_params(p["layers"], i), x, cfg, positions, impl)
+    body = remat_body(apply_block, remat)
+    for layer_p in unstack(p["layers"]):
+        x = body(layer_p, x, cfg, positions, impl)
     x = apply_norm(p["final_norm"], x, cfg)
+    if return_hidden:
+        return x, {}
     return logits_from_hidden(p, cfg, x), {}
 
 

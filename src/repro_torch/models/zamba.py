@@ -9,8 +9,10 @@ concatenated [hidden, initial-embedding] stream).
 
 Parameters keep the JAX layout: the Mamba2 layers' leaves are stacked on
 leading (groups, layers-per-group) axes, so a JAX tree converts leaf for
-leaf.  Where JAX scans over those axes, the port loops in Python and indexes
-each leaf (a view, no copy).
+leaf.  Where JAX scans over those axes, the port loops in Python over
+per-layer views.  ``remat="block"`` recomputes each Mamba2 layer in the
+backward pass, as JAX checkpoints its Mamba2 scan body (the shared block is
+not rematerialised there either).
 """
 
 from __future__ import annotations
@@ -30,6 +32,8 @@ from .transformer import (
     init_block,
     layer_params,
     logits_from_hidden,
+    remat_body,
+    unstack,
 )
 
 PyTree = Any
@@ -60,26 +64,35 @@ def init_params(gen: torch.Generator, cfg: ArchConfig, device) -> PyTree:
     return p
 
 
+def _mamba_layer(layer_p: PyTree, x: torch.Tensor, cfg: ArchConfig, impl: str) -> torch.Tensor:
+    """One pre-normed residual Mamba2 layer from a zero state."""
+    out, _ = apply_mamba2(layer_p["mamba"], apply_norm(layer_p["norm"], x, cfg), cfg, None, impl)
+    return x + out
+
+
 def forward(
     p: PyTree,
     cfg: ArchConfig,
     batch: Dict[str, torch.Tensor],
     impl: str = "torch",
+    remat: str = "block",
+    return_hidden: bool = False,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Prefill forward pass: every Mamba2 layer starts from a zero state
-    (the whole sequence is processed at once).  Returns (logits, aux)."""
+    """Training / prefill forward pass: every Mamba2 layer starts from a
+    zero state (the whole sequence is processed at once).  Returns (logits,
+    aux), or the final-normed hidden states with ``return_hidden``."""
     x = embed_inputs(p, cfg, batch)
     positions = torch.arange(x.shape[1], device=x.device)
+    body = remat_body(_mamba_layer, remat)
+    layers = unstack(p["mamba_layers"], lead=2)  # (group, layer) flattened
+    L = cfg.shared_attn_every
     for g in range(n_groups(cfg)):
-        group_p = layer_params(p["mamba_layers"], g)
-        for i in range(cfg.shared_attn_every):
-            layer_p = layer_params(group_p, i)
-            out, _ = apply_mamba2(
-                layer_p["mamba"], apply_norm(layer_p["norm"], x, cfg), cfg, None, impl
-            )
-            x = x + out
+        for layer_p in layers[g * L : (g + 1) * L]:
+            x = body(layer_p, x, cfg, impl)
         x = apply_block(p["shared_attn"], x, cfg, positions, impl)
     x = apply_norm(p["final_norm"], x, cfg)
+    if return_hidden:
+        return x, {}
     return logits_from_hidden(p, cfg, x), {}
 
 

@@ -1,15 +1,106 @@
-"""Serve step builders (counterpart of the serving half of
-``repro.train.steps``).  The train step comes with the training slice."""
+"""Train, eval and serve step builders (counterpart of
+``repro.train.steps``).
+
+``make_train_step`` returns ``(params, opt_state, batch) -> (params,
+opt_state, metrics)``:
+
+* the batch is split along axis 0 into ``microbatches`` pieces, each
+  piece's gradients taken with ``torch.autograd.grad`` and added into
+  float32 accumulators, which are then divided by the count, as JAX's
+  float32 scan carry does (``.grad`` would accumulate in bf16); with one
+  microbatch the gradients stay in the parameter dtype, as JAX's do;
+* the remat policy is the model's (each layer recomputed in the backward
+  pass with ``remat="block"``);
+* the AdamW update runs in float32 with global-norm clipping, in place
+  (``repro_torch.optim.adamw``).
+
+The train step takes the model's ``"torch"`` paths, as the JAX trainer takes
+``attn_impl="xla"``: the hand-written kernels have no backward, so a model
+built with ``impl="kernel"`` is refused.  The eval step is forward only and
+takes either.
+"""
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Any, Callable, Dict, List, Tuple
 
 import torch
 
+from repro_torch import tree
 from repro_torch.models.model import Model
+from repro_torch.optim import adamw
+
+PyTree = Any
 
 
+def _grads(model: Model, params: PyTree, batch: Dict[str, torch.Tensor]
+           ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], List[torch.Tensor]]:
+    """(loss, metrics, gradient of every leaf in ``tree.leaves`` order), the
+    gradients in the parameter dtype."""
+    flat = tree.leaves(params)
+    with torch.enable_grad():
+        live = [p.detach().requires_grad_() for p in flat]
+        loss, metrics = model.loss(tree.unflatten(params, live), batch)
+        grads = torch.autograd.grad(loss, live)
+    return loss.detach(), {k: v.detach() for k, v in metrics.items()}, list(grads)
+
+
+def _microbatch(batch: Dict[str, torch.Tensor], n: int, i: int) -> Dict[str, torch.Tensor]:
+    """Piece ``i`` of ``n`` of every batch leaf along axis 0 (of
+    ``shape[0] // n`` rows, as JAX's ``dynamic_slice_in_dim``)."""
+    return {k: v[i * (v.shape[0] // n) : (i + 1) * (v.shape[0] // n)] for k, v in batch.items()}
+
+
+def make_train_step(
+    model: Model, opt_cfg: adamw.AdamWConfig, microbatches: int = 1
+) -> Callable:
+    if model.impl != "torch":
+        raise ValueError(
+            f"make_train_step needs a model built with impl='torch', not {model.impl!r}: "
+            "the kernels have no backward pass"
+        )
+    if microbatches < 1:
+        raise ValueError(f"microbatches must be >= 1, got {microbatches}")
+
+    def train_step(params, opt_state, batch):
+        if microbatches == 1:
+            loss, metrics, grads = _grads(model, params, batch)
+        else:
+            flat = tree.leaves(params)
+            acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device) for p in flat]
+            l_sum = torch.zeros((), dtype=torch.float32, device=flat[0].device)
+            for i in range(microbatches):
+                loss, _, grads = _grads(model, params, _microbatch(batch, microbatches, i))
+                for a, g in zip(acc, grads):
+                    a.add_(g)
+                del grads
+                l_sum = l_sum + loss
+            grads = [a.div_(microbatches) for a in acc]
+            loss = l_sum / microbatches
+            metrics = {}
+        new_params, new_opt, opt_metrics = adamw.update(
+            opt_cfg, tree.unflatten(params, grads), opt_state, params
+        )
+        return new_params, new_opt, {"loss": loss, **metrics, **opt_metrics}
+
+    return train_step
+
+
+def make_eval_step(model: Model) -> Callable:
+    """Loss and metrics, forward only (``inference_mode``); a model built
+    with ``impl="kernel"`` runs the hand-written kernels here."""
+
+    @torch.inference_mode()
+    def eval_step(params, batch):
+        loss, metrics = model.loss(params, batch)
+        return {"loss": loss, **metrics}
+
+    return eval_step
+
+
+# ---------------------------------------------------------------------------
+# Serving
+# ---------------------------------------------------------------------------
 def make_prefill_step(model: Model) -> Callable:
     """Prefill: forward over the prompt; returns last-position logits.
     With a model built with ``impl="kernel"`` this is the path

@@ -284,3 +284,74 @@ def test_rwkv6_time_mix_kernel_route_takes_chunk_128(cuda):
     out_t, st_t, _ = rwkv.apply_time_mix(p, x, cfg, prev, None, impl="torch")
     torch.testing.assert_close(st_k, st_t, atol=2e-4, rtol=2e-4)
     torch.testing.assert_close(out_k.float(), out_t.float(), atol=2e-2, rtol=2e-2)
+
+
+# ---------------------------------------------------------------------------
+# Training on the card
+# ---------------------------------------------------------------------------
+def _train(cfg, device, microbatches, steps=2):
+    """``steps`` train steps from seed-0 parameters (made on the CPU and
+    copied, so both devices start equal); returns (metrics, params)."""
+    from repro_torch import tree
+    from repro_torch.optim import adamw
+    from repro_torch.train import make_train_step
+
+    params = tree.tree_map(lambda p: p.to(device), build_model(cfg).init(0, device="cpu"))
+    state = adamw.init(params)
+    step = make_train_step(build_model(cfg), adamw.AdamWConfig(lr=1e-3, warmup_steps=1), microbatches)
+    tokens = torch.randint(0, cfg.vocab_size, (steps, 4, 32), generator=torch.Generator().manual_seed(2))
+    for i in range(steps):
+        params, state, metrics = step(params, state, {"tokens": tokens[i].to(device)})
+    return metrics, params
+
+
+@pytest.mark.parametrize("microbatches", [1, 2])
+@pytest.mark.parametrize("name", ["granite-3-8b", "zamba2-2.7b", "rwkv6-3b"])
+def test_train_step_on_the_card_matches_cpu(cuda, name, microbatches):
+    from repro_torch import tree
+
+    cfg = dataclasses.replace(get_arch(name).reduced(), param_dtype="float32", activation_dtype="float32")
+    m_cpu, p_cpu = _train(cfg, "cpu", microbatches)
+    m_gpu, p_gpu = _train(cfg, cuda, microbatches)
+    for key in ("loss", "grad_norm", "lr"):
+        torch.testing.assert_close(m_gpu[key].cpu(), m_cpu[key], atol=2e-4, rtol=2e-4)
+    for a, b in zip(tree.leaves(p_gpu), tree.leaves(p_cpu)):
+        assert a.device.type == "cuda"
+        torch.testing.assert_close(a.cpu(), b, atol=2e-4, rtol=2e-4)
+
+
+def test_checkpoint_round_trip_of_cuda_tensors(cuda, tmp_path):
+    from repro_torch import tree
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.optim import adamw
+
+    params = build_model(get_arch("zamba2-2.7b").reduced()).init(0, device=cuda)
+    saved = (params, adamw.init(params))
+    mgr = CheckpointManager(tmp_path)
+    mgr.save_async(3, saved).result()
+    step, restored = mgr.restore(tree.tree_map(torch.zeros_like, saved))
+    assert step == 3
+    for a, b in zip(tree.leaves(restored), tree.leaves(saved)):
+        assert a.device == b.device and a.dtype == b.dtype
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("name", ["granite-3-8b", "zamba2-2.7b", "rwkv6-3b"])
+def test_kernel_paths_refuse_autograd_on_the_card(cuda, name):
+    """Under autograd a kernel model raises before any launch (on the card
+    the kernels' outputs would carry no gradient); the train step refuses
+    it when it is built."""
+    from repro_torch import tree
+    from repro_torch.optim import adamw
+    from repro_torch.train import make_train_step
+
+    cfg = get_arch(name).reduced()
+    model = build_model(cfg, impl="kernel")
+    with pytest.raises(ValueError, match="impl='torch'"):
+        make_train_step(model, adamw.AdamWConfig())
+    params = tree.tree_map(lambda p: p.requires_grad_(), model.init(0, device=cuda))
+    counters = (ops, ssd_ops, rwkv6_ops)
+    before = [m.launches for m in counters]
+    with pytest.raises(RuntimeError, match="no backward"):
+        model.loss(params, {"tokens": torch.zeros(2, 64, dtype=torch.long, device=cuda)})
+    assert [m.launches for m in counters] == before

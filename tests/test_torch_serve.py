@@ -34,7 +34,7 @@ def _jax_serve_loop(jmodel, jparams, prompts, gen_len):
     return np.concatenate(out, axis=1), last
 
 
-@pytest.mark.parametrize("name", ["granite-3-8b", "command-r-35b"])
+@pytest.mark.parametrize("name", ["granite-3-8b", "command-r-35b", "zamba2-2.7b", "rwkv6-3b"])
 def test_greedy_tokens_match_jax(name):
     jcfg, tcfg = f32_pair(name)
     jmodel = jax_build_model(jcfg)
