@@ -20,49 +20,65 @@ Phases, in order; any failure raises and the script exits non-zero:
    here), the RWKV6 sweep and RWKV6's strong-decay case on the tensor-core
    RWKV6 kernel (rwkv6_fwd_sm90.cu, whose registers, spills, shared memory
    and blocks per SM are printed here).
+   Flash attention is also checked at the shapes the MoE and modality
+   configs give it: internvl2-1b's GQA 7:1 at hd 64 and S = 768,
+   musicgen-large's MHA at hd 64, and mixtral's window of 4096 at S = 512.
    Each kernel is checked and timed at the shape its serve path gives it
-   (granite-3-8b and zamba2-2.7b attention, zamba2's SSD, rwkv6-3b's WKV),
+   (granite-3-8b and zamba2-2.7b attention, zamba2's SSD, rwkv6-3b's WKV;
+   flash also at internvl2's and musicgen's shapes, and the float32 flash
+   kernel at mixtral's, where phase 3's float32 MoE serving runs it),
    beside its plain version, PyTorch's fused attention for flash, and its
    bound; every kernel and PyTorch's attention both eagerly (CUDA events
    over 20 calls) and by replaying a CUDA graph of 20 captured calls, which
-   leaves out the host's cost of each call; the float32 flash kernel is
-   timed at granite's shape too, the RWKV6 kernel with float32 and with the
-   bfloat16 r, k, v the model feeds.  The SSD and RWKV6 kernels' bounds are
+   leaves out the host's cost of each call; the RWKV6 kernel with float32
+   and with the bfloat16 r, k, v the model feeds.  The SSD and RWKV6 kernels' bounds are
    at the TF32 tensor-core rate with three split-TF32 products per product,
    where the kernels do their products; the bound at the float32 rate
    outside the tensor cores is printed beside it.  At their serve shapes
    the scans are held elementwise against their plain version run in
    float64, with the float32 plain version's own error printed beside
    them.
-3. Serve granite-3-8b, zamba2-2.7b and rwkv6-3b at full width and depth with
-   random weights (seeded on the card): 8 requests, 512-token prompts, 32
-   generated tokens each.  Every launch count is set to 0 before each run
-   and must be exact after it (flash once per attention block, SSD once per
-   Mamba2 layer, RWKV6 once per layer; every flash launch on the bf16
-   tensor-core kernel), the prompt forward and the teacher-forced decode
-   must agree, and every generated id must lie below the vocabulary size.
-4. Profile each family's prompt forward through the kernels and its serving
-   loop (teacher-forced prefill and greedy decode) at full width with
-   torch.profiler: device busy time, the device's idle share and the kernels
-   that take the most time.
+3. Serve granite-3-8b, zamba2-2.7b and rwkv6-3b at full width and depth,
+   and mixtral-8x7b and phi3.5-moe-42b-a6.6b at full width with 8 of their
+   32 layers in float32 (MOE_SERVE says why), with random weights (seeded
+   on the card): 8 requests, 512-token prompts, 32 generated tokens each.
+   Every launch count is set to 0 before each run and must be exact after
+   it (flash once per attention block, SSD once per Mamba2 layer, RWKV6
+   once per layer; every bf16 flash launch on the tensor-core kernel, every
+   float32 one on the CUDA-core kernel), the prompt forward and the
+   teacher-forced decode must agree (an MoE's prompt forward at its no-drop
+   capacity, as the launcher runs it; the experts each path chose are
+   counted), and every generated id must lie below the vocabulary size.
+4. Profile each served family's prompt forward through the kernels and its
+   serving loop (teacher-forced prefill and greedy decode) at full width
+   with torch.profiler: device busy time, the device's idle share and the
+   kernels that take the most time.  The MoE configs are profiled in bf16
+   with 16 of their 32 layers (``tools/moe_routing_probe.py`` runs their
+   serve check's two paths there without the gate).
 5. Training.  (a) Two train steps of the reduced float32 granite-3-8b,
-   zamba2-2.7b and rwkv6-3b on the card and on the CPU from the same
-   parameters (rwkv6 in two microbatches): loss, grad norm and every
-   parameter leaf within 2e-4 + 2e-4 * |want|.  (b) Full width, 8 x 512
-   tokens, 4 steps: rwkv6-3b (2 microbatches) and zamba2-2.7b (1) through
-   the trainer's CLI (``repro_torch.launch.train.main``), and granite-3-8b
-   with 8 of its 40 layers through ``make_train_step`` (all 40 cannot fit:
-   16.3 GB of bf16 parameters and 65.4 GB of float32 moments); each prints
-   ms per step after step 0, tokens/s, mfu_6nt (6 N T over the step time
-   and 989 TFLOP/s; remat's recompute not counted), peak memory and its
-   losses, which must be finite.  (c) The eval step through the kernels at
-   full width against the torch paths' eval loss, within 2e-2 + 2e-2 *
-   |want|, with exact launch counts (granite 8 layers: flash 8; zamba2: ssd
-   54 + flash 9; rwkv6: 32).  (d) A checkpoint round trip of (params,
-   optimizer state) on the card, reduced zamba2-2.7b, exact.  (e) Where a
-   full-width step's time goes, for each of the three: the gradient pass
-   and the AdamW update timed apart, the forward alone, and under
-   torch.profiler the device's busy time, idle share and top kernels.
+   zamba2-2.7b, rwkv6-3b, mixtral-8x7b, internvl2-1b and musicgen-large on
+   the card and on the CPU from the same parameters (rwkv6 and musicgen in
+   two microbatches): loss, grad norm and every parameter leaf within
+   2e-4 + 2e-4 * |want|.  (b) Full width, 8 x 512 tokens, 4 steps: rwkv6-3b
+   (2 microbatches), zamba2-2.7b, internvl2-1b and musicgen-large (1)
+   through the trainer's CLI (``repro_torch.launch.train.main``), and
+   granite-3-8b with 8 of its 40 layers and mixtral-8x7b with 2 of its 32
+   through ``make_train_step`` (all the layers cannot fit: granite's 40
+   need 16.3 GB of bf16 parameters and 65.4 GB of float32 moments,
+   mixtral's 2 already 3.16 B parameter elements); each prints ms per step
+   after step 0, tokens/s, mfu_6nt (6 N T over the step time and 989
+   TFLOP/s; remat's recompute not counted; for mixtral also over the
+   parameters active per token), peak memory and its losses, which must be
+   finite.  (c) The eval step through the kernels at full width against
+   the torch paths' eval loss, within 2e-2 + 2e-2 * |want|, with exact
+   launch counts (granite 8 layers: flash 8; zamba2: ssd 54 + flash 9;
+   rwkv6: 32; internvl2: 24; musicgen: 48; mixtral, bf16, 16 layers at its
+   configured capacity: 16, with its aux loss and drop rate).  (d) A
+   checkpoint round trip of (params, optimizer state) on the card, reduced
+   zamba2-2.7b, exact.  (e) Where a full-width step's time goes, for
+   rwkv6, zamba2 and granite: the gradient pass and the AdamW update timed
+   apart, the forward alone, and under torch.profiler the device's busy
+   time, idle share and top kernels.
 
 The line before the last is a JSON object with each kernel's launches on the
 main path, error, times and bound; the last line names the device.  With no
@@ -72,6 +88,7 @@ and exits non-zero.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import json
 import re
@@ -101,6 +118,9 @@ FLASH_HD80 = [(1, 128, 4, 4, 80, 64, 64, None), (2, 256, 8, 8, 80, 128, 128, Non
 FLASH_HD192 = [(1, 256, 8, 2, 192, 128, 128, None), (1, 384, 4, 2, 192, 128, 128, 100)]  # bf16 only
 GRANITE_ATTN = (8, 512, 32, 8, 128, 128, 128, None)  # prefill of the serve phase
 ZAMBA_ATTN = (8, 512, 32, 32, 80, 128, 128, None)  # zamba2's shared block
+MIXTRAL_ATTN = (8, 512, 32, 8, 128, 128, 128, 4096)  # mixtral's (and phi's) shape, window 4096 >= S
+INTERNVL2_ATTN = (8, 768, 14, 2, 64, 128, 128, None)  # GQA 7:1, 256 patches + 512 tokens
+MUSICGEN_ATTN = (8, 512, 32, 32, 64, 128, 128, None)  # MHA at hd 64
 
 SSD_SWEEP = [  # (B, S, H, P, G, N, chunk), tests/test_kernels.py:110-118
     (1, 64, 2, 16, 1, 8, 16),
@@ -117,10 +137,27 @@ RWKV6_STRONG_WIDE = (1, 512, 2, 64, 64)  # logw = -5 at rwkv6's widths, eight 64
 RWKV6_SERVE = (8, 512, 40, 64, 32)  # rwkv6-3b's prompt forward, per layer
 
 SERVE_ARCHS = ["granite-3-8b", "zamba2-2.7b", "rwkv6-3b"]
+# The MoE configs do not fit one 80 GB card whole (93.4 / 83.7 GB of bf16
+# parameters), so each runs at full width with part of its 32 layers.  Phase
+# 3 serves them in float32 with 8 layers (47.5 / 42.7 GB): in bf16 the prompt
+# forward and the teacher-forced decode route near-tied tokens to different
+# experts, the flips compound over layers, and the served check fails
+# (PERF.md; tools/moe_routing_probe.py measures it); float32 is the JAX
+# invariant's own dtype.  Phase 4 profiles them in bf16 with 16 layers
+# (47.0 / 42.1 GB), and phase 5c evaluates mixtral so.
+MOE_SERVE_ARCHS = ["mixtral-8x7b", "phi3.5-moe-42b-a6.6b"]
+MOE_SERVE = (8, "float32")  # (layers, dtype) of phase 3
+MOE_PROFILE = (16, "bfloat16")  # (layers, dtype) of phase 4
 
-TRAIN_CPU_CHECK = [("granite-3-8b", 1), ("zamba2-2.7b", 1), ("rwkv6-3b", 2)]  # (arch, microbatches)
-TRAIN_FULL_CLI = [("rwkv6-3b", 2), ("zamba2-2.7b", 1)]  # full width through launch.train.main
-GRANITE_TRAIN_LAYERS = 8  # of 40: the most that fits with float32 moments on one 80 GB card
+TRAIN_CPU_CHECK = [("granite-3-8b", 1), ("zamba2-2.7b", 1), ("rwkv6-3b", 2),  # (arch, microbatches)
+                   ("mixtral-8x7b", 1), ("internvl2-1b", 1), ("musicgen-large", 2)]
+TRAIN_FULL_CLI = [("rwkv6-3b", 2), ("zamba2-2.7b", 1),  # full width through launch.train.main
+                  ("internvl2-1b", 1), ("musicgen-large", 1)]
+# Depth cuts for make_train_step at full width: the most layers that fit with
+# float32 moments on one 80 GB card.
+TRAIN_LAYERS = {"granite-3-8b": 8, "mixtral-8x7b": 2}
+EVAL_LAYERS = {"mixtral-8x7b": 16}  # the eval step holds no moments: as served
+PROFILE_TRAIN = ["rwkv6-3b", "zamba2-2.7b", "granite-3-8b"]  # phase 5e
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 4
 
 
@@ -244,14 +281,16 @@ def check_flash(case, dtype, gen, tol):
 
 
 def flash_bound_ms(case, dtype_bytes: int):
-    """Least time for the function at a causal case: bytes of q, k, v, o
-    once over HBM rate vs 4*hd flops per unmasked (q, k) pair over the bf16
-    peak.  Returns (ms, "bytes" | "operations")."""
+    """Least time for the function at a causal case whose window masks no
+    key: bytes of q, k, v, o once over HBM rate vs 4*hd flops per unmasked
+    (q, k) pair over the peak of the inputs' type (bf16 on the tensor cores,
+    float32 outside them).  Returns (ms, "bytes" | "operations")."""
     B, S, H, K, hd = case[:5]
     nbytes = dtype_bytes * B * S * hd * (2 * H + 2 * K)
     pairs = S * (S + 1) // 2
     flops = 4 * hd * B * H * pairs
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+    peak = BF16_FLOPS if dtype_bytes == 2 else F32_FLOPS
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -548,30 +587,39 @@ def phase2_kernels(torch, gen, build_logs: dict) -> dict:
             check_flash(case, dtype, gen, tol)
     for case in FLASH_HD192:
         check_flash(case, torch.bfloat16, gen, 2e-2)
+    print("phase 2: flash attention at the shapes the MoE and modality configs give it")
+    for case in (INTERNVL2_ATTN, MUSICGEN_ATTN):  # GQA 7:1 and MHA at hd 64
+        check_flash(case, torch.float32, gen, 2e-4)
+    check_flash(MIXTRAL_ATTN, torch.bfloat16, gen, 2e-2)  # window 4096 >= S: masks no key
+    # Timed at each serve path's shape; phase 3 serves the MoE configs in
+    # float32, so their prompt forwards run the CUDA-core kernel at mixtral's
+    # shape (phi's is the same without the window, which masks no key here).
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    for name, case in (("flash_fwd", GRANITE_ATTN), ("flash_fwd hd80", ZAMBA_ATTN)):
-        err, (q, k, v) = check_flash(case, torch.bfloat16, gen, 2e-2)
+    for name, case, dtype, tol in (("flash_fwd", GRANITE_ATTN, torch.bfloat16, 2e-2),
+                                   ("flash_fwd hd80", ZAMBA_ATTN, torch.bfloat16, 2e-2),
+                                   ("flash_fwd gqa7 hd64", INTERNVL2_ATTN, torch.bfloat16, 2e-2),
+                                   ("flash_fwd mha hd64", MUSICGEN_ATTN, torch.bfloat16, 2e-2),
+                                   ("flash_fwd f32 moe", MIXTRAL_ATTN, torch.float32, 2e-4)):
+        err, (q, k, v) = check_flash(case, dtype, gen, tol)
+        window = case[7]
         qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-        kernel = lambda: flash_ops.flash_attention(q, k, v)
-        library = lambda: sdpa(qh, kh, vh, is_causal=True, enable_gqa=True)
+        kernel = lambda: flash_ops.flash_attention(q, k, v, window=window)
+        library = lambda: sdpa(qh, kh, vh, is_causal=True, enable_gqa=True)  # window None or >= S
         out[name] = dict(
             max_abs_err=err,
             ms=graph_ms(kernel),
             ms_eager=cuda_ms(kernel),
-            plain_ms=cuda_ms(lambda: flash_ref.attention_reference(qh, kh, vh, causal=True)),
+            plain_ms=cuda_ms(lambda: flash_ref.attention_reference(qh, kh, vh, causal=True,
+                                                                    window=window)),
             library_ms=graph_ms(library),
             library_ms_eager=cuda_ms(library),
         )
         out[name]["bound_ms"], out[name]["bound_by"] = flash_bound_ms(case, q.element_size())
         del q, k, v, qh, kh, vh
     out["flash_fwd"]["at_zamba2_hd80"] = out["flash_fwd hd80"]
-    q, k, v = flash_inputs(GRANITE_ATTN, torch.float32, gen)
-    f32 = lambda: flash_ops.flash_attention(q, k, v)
-    f32_ms, f32_eager = graph_ms(f32, replays=3), cuda_ms(f32)
-    print(f"  flash_fwd float32 (CUDA-core kernel, flash_fwd.cu) at {GRANITE_ATTN[:5]}: "
-          f"{f32_ms:.4f} ms graph-replayed, {f32_eager:.4f} ms eager, bound "
-          f"{flash_bound_ms(GRANITE_ATTN, 4)[0]:.4f} ms", flush=True)
-    del q, k, v
+    out["flash_fwd"]["at_internvl2_gqa7_hd64"] = out["flash_fwd gqa7 hd64"]
+    out["flash_fwd"]["at_musicgen_mha_hd64"] = out["flash_fwd mha hd64"]
+    out["flash_fwd"]["at_moe_serve_f32"] = out["flash_fwd f32 moe"]
 
     print("phase 2: SSD, tensor-core kernel (ssd_fwd_sm90.cu): nvcc -Xptxas -v")
     ssd_smem = ssd_ops._kernel().ssd_fwd_sm90_smem_bytes()
@@ -656,6 +704,10 @@ def phase2_kernels(torch, gen, build_logs: dict) -> dict:
 
     for label, name, shape in (("flash_fwd", "flash_fwd", GRANITE_ATTN[:5]),
                                ("flash_fwd hd80", "flash_fwd hd80", ZAMBA_ATTN[:5]),
+                               ("flash_fwd GQA 7:1 hd64", "flash_fwd gqa7 hd64", INTERNVL2_ATTN[:5]),
+                               ("flash_fwd MHA hd64", "flash_fwd mha hd64", MUSICGEN_ATTN[:5]),
+                               ("flash_fwd float32 (flash_fwd.cu), window 4096", "flash_fwd f32 moe",
+                                MIXTRAL_ATTN[:5]),
                                ("ssd_fwd", "ssd_fwd", ZAMBA_SSD),
                                ("rwkv6_fwd bf16 r, k, v", "rwkv6_fwd", RWKV6_SERVE)):
         m = out[name]
@@ -675,7 +727,8 @@ def phase2_kernels(torch, gen, build_logs: dict) -> dict:
 
 
 def expected_launches(cfg) -> dict:
-    """Kernel launches of one prompt forward through the kernels."""
+    """Kernel launches of one prompt forward through the kernels (of at most
+    a sliding window's length: every transformer layer launches flash)."""
     if cfg.family == "hybrid":
         return {"flash_fwd": cfg.n_layers // cfg.shared_attn_every, "ssd_fwd": cfg.n_layers,
                 "rwkv6_fwd": 0}
@@ -684,33 +737,119 @@ def expected_launches(cfg) -> dict:
     return {"flash_fwd": cfg.n_layers, "ssd_fwd": 0, "rwkv6_fwd": 0}
 
 
-def phase3_serve(torch, arch: str, counters: dict) -> dict:
-    """Serve one architecture at full width; returns its launch counts."""
-    from repro_torch.configs import get_arch
-    from repro_torch.launch import serve
+def moe_config(arch: str, layers_dtype):
+    """An MoE config at full width with ``layers`` of its layers and
+    ``dtype`` parameters and activations."""
+    import dataclasses
 
-    cfg = get_arch(arch)
-    print(f"phase 3: serve {cfg.name} at full width: {cfg.n_layers} layers, d_model "
+    from repro_torch.configs import get_arch
+
+    layers, dtype = layers_dtype
+    return dataclasses.replace(get_arch(arch), n_layers=layers, param_dtype=dtype,
+                               activation_dtype=dtype)
+
+
+def depth_label(cfg) -> str:
+    from repro_torch.configs import get_arch
+
+    full = get_arch(cfg.name)
+    label = cfg.name if cfg.n_layers == full.n_layers else \
+        f"{cfg.name} ({cfg.n_layers} of {full.n_layers} layers)"
+    return label if cfg.param_dtype == full.param_dtype else f"{label} {cfg.param_dtype}"
+
+
+class RoutingRecorder:
+    """Wraps ``repro_torch.models.moe.top_k`` during one serve run and keeps
+    each layer's top-k experts in the prompt forward (its calls with S > 1)
+    and in each teacher-forced decode step over the prompt (S = 1), to count
+    the (token, layer) pairs the two paths route to different experts.  The
+    wrapper only records: the routing is the package's."""
+
+    def __init__(self, moe_module, n_layers: int, prompt_len: int):
+        self.moe, self.real = moe_module, moe_module.top_k
+        self.L, self.S = n_layers, prompt_len
+        self.fwd, self.gap, self.dec = [], [], []
+
+    def __enter__(self):
+        self.moe.top_k = self
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.top_k = self.real
+
+    def __call__(self, probs, k):
+        w, ids = self.real(probs, k)
+        if probs.shape[1] > 1 and len(self.fwd) < self.L:
+            self.fwd.append(ids.sort(-1).values)
+            top = probs.sort(-1, descending=True).values
+            self.gap.append(top[..., k - 1] - top[..., k])
+        elif probs.shape[1] == 1 and len(self.dec) < self.L * self.S:
+            self.dec.append(ids.sort(-1).values)
+        return w, ids
+
+    def flips(self) -> dict:
+        """Per layer, the (token, request) pairs whose expert set differs
+        between the prompt forward and decode, at every prompt position and
+        at the last; and the largest probability gap (k-th minus (k+1)-th,
+        in the forward) among the flipped pairs."""
+        import torch
+
+        fwd = torch.stack(self.fwd)  # (L, B, S, k)
+        dec = torch.stack(self.dec).view(self.S, self.L, *fwd.shape[1:2], -1).permute(1, 2, 0, 3)
+        differs = (fwd != dec).any(-1)  # (L, B, S)
+        gap = torch.stack(self.gap)
+        return {
+            "all_positions": differs.sum(dim=(1, 2)).tolist(),
+            "last_position": differs[:, :, -1].sum(dim=1).tolist(),
+            "pairs": differs[0].numel(),
+            "max_gap_at_flip": float(gap[differs].max()) if bool(differs.any()) else None,
+            "median_gap": float(gap.median()),
+        }
+
+
+def phase3_serve(torch, cfg, counters: dict) -> dict:
+    """Serve one configuration at full width through the launcher's
+    ``serve_config`` with its CLI's arguments (``serve.main`` is that call on
+    a registered config; a depth-cut one needs it); returns its launch
+    counts."""
+    from repro_torch.launch import serve
+    from repro_torch.models import moe
+
+    label = depth_label(cfg)
+    print(f"phase 3: serve {label} at full width: {cfg.n_layers} layers, d_model "
           f"{cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads}, hd {cfg.resolved_head_dim}, "
-          f"d_ff {cfg.d_ff}, {cfg.param_count() / 1e9:.2f} B parameters", flush=True)
+          f"d_ff {cfg.d_ff}" + (f", {cfg.moe.num_experts} experts top-{cfg.moe.top_k}"
+                                if cfg.moe else "")
+          + f", {cfg.param_dtype}, {cfg.param_count() / 1e9:.2f} B parameters", flush=True)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     for mod in counters.values():
         mod.launches = 0
     counters["flash_fwd"].tensor_core_launches = 0
-    result = serve.main(serve_args(arch))
+    args = serve.build_parser().parse_args(serve_args(cfg.name))
+    recorder = RoutingRecorder(moe, cfg.n_layers, args.prompt_len) if cfg.moe else None
+    try:
+        with recorder or contextlib.nullcontext():
+            result = serve.serve_config(cfg, args, torch.device("cuda"))
+    finally:  # also when the prefill/decode check fails
+        if recorder and len(recorder.dec) == recorder.L * recorder.S:
+            print(f"  {label}: routing, prompt forward (no-drop capacity) against teacher-forced "
+                  f"decode: {recorder.flips()}", flush=True)
     launches = {name: mod.launches for name, mod in counters.items()}
     want = expected_launches(cfg)
     if launches != want:
-        raise RuntimeError(f"{arch}: kernel launches {launches} in the serve run, expected {want}")
-    if counters["flash_fwd"].tensor_core_launches != launches["flash_fwd"]:
-        raise RuntimeError(f"{arch}: {counters['flash_fwd'].tensor_core_launches} of "
-                           f"{launches['flash_fwd']} flash launches on the bf16 tensor-core kernel")
+        raise RuntimeError(f"{label}: kernel launches {launches} in the serve run, expected {want}")
+    want_tc = launches["flash_fwd"] if cfg.activation_dtype == "bfloat16" else 0
+    if counters["flash_fwd"].tensor_core_launches != want_tc:
+        raise RuntimeError(f"{label}: {counters['flash_fwd'].tensor_core_launches} of "
+                           f"{launches['flash_fwd']} flash launches on the bf16 tensor-core kernel, "
+                           f"expected {want_tc} for {cfg.activation_dtype}")
+    launches["flash_fwd_tensor_core"] = want_tc
     gen_ids = result["tokens"]
     if gen_ids.shape != (8, 32) or int(gen_ids.max()) >= cfg.vocab_size or int(gen_ids.min()) < 0:
-        raise RuntimeError(f"{arch}: generated ids out of range: shape {gen_ids.shape}")
-    print(f"  {arch}: launches {launches}; prompt forward (kernels) "
+        raise RuntimeError(f"{label}: generated ids out of range: shape {gen_ids.shape}")
+    print(f"  {label}: launches {launches}; prompt forward (kernels) "
           f"{result['prompt_forward_s'] * 1e3:.1f} ms; teacher-forced prefill "
           f"{result['prefill_s'] * 1e3:.1f} ms; decode {result['decode_s'] * 1e3:.1f} ms; "
           f"{result['tokens_per_s']:.1f} tok/s; prefill/decode max |diff| "
@@ -765,7 +904,7 @@ def phase5a_card_against_cpu(torch) -> None:
 
     from repro_torch import tree
     from repro_torch.configs import get_arch
-    from repro_torch.models import build_model
+    from repro_torch.models import build_model, synthetic_batch
     from repro_torch.optim import adamw
     from repro_torch.train import make_train_step
 
@@ -773,15 +912,19 @@ def phase5a_card_against_cpu(torch) -> None:
         cfg = dataclasses.replace(get_arch(arch).reduced(), param_dtype="float32",
                                   activation_dtype="float32")
         start = build_model(cfg).init(0, device="cpu")
-        tokens = torch.randint(0, cfg.vocab_size, (2, 4, 64), generator=torch.Generator().manual_seed(3))
+        if cfg.frontend == "none":
+            tokens = torch.randint(0, cfg.vocab_size, (2, 4, 64), generator=torch.Generator().manual_seed(3))
+            batches = [{"tokens": tokens[i]} for i in range(2)]
+        else:  # frame or patch embeddings beside (or in place of) the tokens
+            batches = [synthetic_batch(cfg, 4, 64, seed=3 + i, device="cpu") for i in range(2)]
         out = {}
         for device in ("cpu", "cuda"):
             params = tree.tree_map(lambda p: p.to(device, copy=True), start)
             state = adamw.init(params)
             step = make_train_step(build_model(cfg), adamw.AdamWConfig(lr=1e-3, warmup_steps=1),
                                    microbatches)
-            for i in range(2):
-                params, state, metrics = step(params, state, {"tokens": tokens[i].to(device)})
+            for batch in batches:
+                params, state, metrics = step(params, state, tree.tree_map(lambda t: t.to(device), batch))
             out[device] = (metrics, params)
         (m_cpu, p_cpu), (m_gpu, p_gpu) = out["cpu"], out["cuda"]
         label = f"phase 5a: {cfg.name} f32, {microbatches} microbatch(es), 2 steps, card vs CPU"
@@ -823,21 +966,27 @@ def phase5b_train_cli(torch, arch: str, microbatches: int) -> dict:
     return numbers
 
 
-def phase5b_granite_layers(torch) -> dict:
-    """granite-3-8b at full width with GRANITE_TRAIN_LAYERS layers through
-    make_train_step, on the trainer's data and optimizer settings."""
+def train_layers_config(arch: str):
+    """``arch`` at full width with TRAIN_LAYERS[arch] of its layers."""
     import dataclasses
 
-    from repro_torch import tree
     from repro_torch.configs import get_arch
+
+    return dataclasses.replace(get_arch(arch), n_layers=TRAIN_LAYERS[arch])
+
+
+def phase5b_layers(torch, arch: str) -> dict:
+    """``arch`` at full width with TRAIN_LAYERS[arch] layers through
+    make_train_step, on the trainer's data and optimizer settings.  For an
+    MoE also mfu_6nt over the parameters active per token (top-k experts)."""
+    from repro_torch import tree
     from repro_torch.data import DataConfig, make_batch
     from repro_torch.models import build_model
     from repro_torch.optim import AdamWConfig, adamw
     from repro_torch.train import make_train_step
 
-    cfg = dataclasses.replace(get_arch("granite-3-8b"), n_layers=GRANITE_TRAIN_LAYERS)
-    print(f"phase 5b: granite-3-8b, {cfg.n_layers} of 40 layers at full width, make_train_step",
-          flush=True)
+    cfg = train_layers_config(arch)
+    print(f"phase 5b: {depth_label(cfg)} at full width, make_train_step", flush=True)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     model = build_model(cfg)
@@ -854,11 +1003,18 @@ def phase5b_granite_layers(torch) -> dict:
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(metrics["loss"]))
-        print(f"  step {i} loss {losses[-1]:.6f} gnorm {float(metrics['grad_norm']):.6f} "
+        moe = (f" moe_aux_loss {float(metrics['moe_aux_loss']):.6f} moe_drop_rate "
+               f"{float(metrics['moe_drop_rate']):.6f}" if cfg.moe else "")
+        print(f"  step {i} loss {losses[-1]:.6f} gnorm {float(metrics['grad_norm']):.6f}{moe} "
               f"{step_ms[-1]:.3f} ms", flush=True)
     n_params = sum(p.numel() for p in tree.leaves(params))
     numbers = train_numbers(step_ms, losses, n_params, torch.cuda.max_memory_allocated())
     numbers["microbatches"] = 1
+    if cfg.moe:
+        glu = 3 if cfg.mlp_act.endswith("_glu") else 2
+        inactive = cfg.n_layers * (cfg.moe.num_experts - cfg.moe.top_k) * glu * cfg.d_model * cfg.d_ff
+        numbers["active_params"] = n_params - inactive
+        numbers["mfu_6nt_active"] = numbers["mfu_6nt"] * (n_params - inactive) / n_params
     del params, state
     return numbers
 
@@ -932,34 +1088,49 @@ def profile_train_step(torch, cfg, microbatches: int) -> dict:
     }
 
 
+def pipeline_batch(torch, cfg, seed: int) -> dict:
+    """Step 0's batch of the trainer's data pipeline (TRAIN_BATCH x
+    TRAIN_SEQ) on the card: token ids as int64; frame or patch embeddings
+    as float32, as ``launch/train.py`` moves them."""
+    from repro_torch.data import DataConfig, make_batch
+
+    out = {}
+    data = DataConfig(seed=seed, global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ)
+    for k, v in make_batch(cfg, data, 0).items():
+        t = torch.from_numpy(v)
+        out[k] = (t if t.is_floating_point() else t.long()).cuda()
+    return out
+
+
 def phase5c_eval(torch, cfg, counters: dict) -> dict:
     """The eval step through the kernels at full width against the torch
     paths' eval loss; returns the kernels' launch counts."""
-    from repro_torch.data import DataConfig, make_batch
     from repro_torch.models import build_model
     from repro_torch.train import make_eval_step
 
     torch.cuda.empty_cache()
     params = build_model(cfg).init(1, device="cuda")
-    batch = {"tokens": torch.from_numpy(
-        make_batch(cfg, DataConfig(seed=1, global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ), 0)["tokens"]
-    ).long().cuda()}
+    batch = pipeline_batch(torch, cfg, seed=1)
     for mod in counters.values():
         mod.launches = 0
     counters["flash_fwd"].tensor_core_launches = 0
-    fast = make_eval_step(build_model(cfg, impl="kernel"))(params, batch)["loss"]
+    fast = make_eval_step(build_model(cfg, impl="kernel"))(params, batch)
     launches = {name: mod.launches for name, mod in counters.items()}
     want = expected_launches(cfg)
     if launches != want:
         raise RuntimeError(f"{cfg.name} eval: kernel launches {launches}, expected {want}")
     if counters["flash_fwd"].tensor_core_launches != launches["flash_fwd"]:
         raise RuntimeError(f"{cfg.name} eval: flash launches off the bf16 tensor-core kernel")
-    plain = make_eval_step(build_model(cfg))(params, batch)["loss"]
+    launches["flash_fwd_tensor_core"] = launches["flash_fwd"]
+    plain = make_eval_step(build_model(cfg))(params, batch)
     err = check_close(f"phase 5c: {cfg.name} ({cfg.n_layers} layers) eval loss, kernels vs torch "
                       f"paths, {TRAIN_BATCH} x {TRAIN_SEQ} tokens, launches {launches}",
-                      fast.cpu().reshape(1), plain.cpu().reshape(1), 2e-2)
-    print(f"    kernel eval loss {float(fast):.6f}, torch-path eval loss {float(plain):.6f}, "
-          f"|diff| {err:.3g}", flush=True)
+                      fast["loss"].cpu().reshape(1), plain["loss"].cpu().reshape(1), 2e-2)
+    print(f"    kernel eval loss {float(fast['loss']):.6f}, torch-path eval loss "
+          f"{float(plain['loss']):.6f}, |diff| {err:.3g}", flush=True)
+    if cfg.moe:
+        print("    " + ", ".join(f"{k}: kernels {float(fast[k]):.6f} / torch paths {float(plain[k]):.6f}"
+                                 for k in ("moe_aux_loss", "moe_drop_rate")), flush=True)
     del params
     return launches
 
@@ -997,9 +1168,80 @@ def phase5d_checkpoint(torch) -> None:
           f"{n} leaves exact (dtype, device, values)", flush=True)
 
 
-def main() -> int:
+def phase4_profile(torch, cfg) -> None:
+    """Phase 4 for one served configuration: its prompt forward through the
+    kernels (as the launcher runs it: an MoE at its no-drop capacity) and
+    its serving loop, under torch.profiler."""
+    from repro_torch.launch.serve import no_drop_config
+    from repro_torch.models import build_model
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    label = depth_label(cfg)
+    params = build_model(cfg).init(1, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    prompt = lambda n: torch.randint(0, cfg.vocab_size, (8, n), device="cuda", generator=gen)
+    fwd = profile_prompt_forward(build_model(no_drop_config(cfg), impl="kernel"), params, prompt(512))
+    prof = profile_serving_loop(build_model(cfg), params, prompt(64))
+    del params
+    print(f"phase 4: {label} prompt forward (kernels, 8 x 512 tokens): {fwd['wall_ms']:.3f} ms "
+          f"wall, {fwd['device_busy_ms']:.3f} ms device busy, device idle share "
+          f"{fwd['device_idle_share']:.3f}")
+    for name, ms in fwd["top_kernels_ms"]:
+        print(f"  {ms:8.4f} ms  {name}")
+    print(f"phase 4: {label} serving loop, {prof['steps']} decode steps of 8 requests: "
+          f"{prof['wall_ms_per_step']:.3f} ms/step wall ({prof['traced_wall_ms_per_step']:.3f} "
+          f"traced), {prof['device_busy_ms_per_step']:.3f} ms/step device busy, device idle "
+          f"share {prof['device_idle_share']:.3f}")
+    for name, ms in prof["top_kernels_ms_per_step"]:
+        print(f"  {ms:8.4f} ms/step  {name}")
+    print(f"phase 4: {label}: {time.perf_counter() - t0:.1f} s wall (init, both profiles)", flush=True)
+
+
+def train_label(arch: str) -> str:
+    return f"{arch} ({TRAIN_LAYERS[arch]} layers)" if arch in TRAIN_LAYERS else arch
+
+
+def phase5_training(torch, smi: str, counters: dict) -> dict:
+    """Phase 5 (a)-(e); returns the eval steps' launch counts by path."""
     import dataclasses
 
+    from repro_torch.configs import get_arch
+
+    phase5a_card_against_cpu(torch)
+    training = {arch: phase5b_train_cli(torch, arch, mb) for arch, mb in TRAIN_FULL_CLI}
+    for arch in TRAIN_LAYERS:
+        training[train_label(arch)] = phase5b_layers(torch, arch)
+    print(f"phase 5b: training at full width, {TRAIN_BATCH} x {TRAIN_SEQ} tokens per step, "
+          f"{TRAIN_STEPS} steps, on {smi}:")
+    for name, m in training.items():
+        active = (f" (mfu_6nt {m['mfu_6nt_active']:.4f} over the {m['active_params'] / 1e9:.3f} B "
+                  f"parameters active per token)" if "mfu_6nt_active" in m else "")
+        print(f"  {name}: {m['params'] / 1e9:.3f} B parameters, {m['microbatches']} microbatch(es): "
+              f"{m['ms_per_step']:.3f} ms/step after step 0 (steps {[round(x, 3) for x in m['step_ms']]}), "
+              f"{m['tokens_per_s']:.1f} tokens/s, mfu_6nt {m['mfu_6nt']:.4f}{active}, peak memory "
+              f"{m['peak_gib']:.2f} GiB, losses {[round(x, 4) for x in m['losses']]}", flush=True)
+    eval_cfgs = [get_arch(a) for a, _ in TRAIN_FULL_CLI] + [
+        dataclasses.replace(get_arch(a), n_layers=EVAL_LAYERS.get(a, n)) for a, n in TRAIN_LAYERS.items()]
+    by_path = {f"train-eval {cfg.name} ({cfg.n_layers} layers)": phase5c_eval(torch, cfg, counters)
+               for cfg in eval_cfgs}
+    phase5d_checkpoint(torch)
+    for arch in PROFILE_TRAIN:
+        name = train_label(arch)
+        cfg = train_layers_config(arch) if arch in TRAIN_LAYERS else get_arch(arch)
+        p = training[name]["profile"] = profile_train_step(torch, cfg, training[name]["microbatches"])
+        print(f"phase 5e: {name} train step, {training[name]['microbatches']} microbatch(es), on "
+              f"{smi}: {p['step_ms']:.3f} ms wall; gradient pass {p['grads_ms']:.3f} ms, AdamW "
+              f"update {p['update_ms']:.3f} ms, torch-path forward alone {p['forward_ms']:.3f} ms; "
+              f"device busy {p['device_busy_ms']:.3f} ms, idle share {p['device_idle_share']:.3f}, "
+              f"{p['kernel_launches']} kernels", flush=True)
+        for kernel, ms in p["top_kernels_ms"]:
+            print(f"  {ms:10.3f} ms  {kernel}")
+    print(json.dumps({"training": training, "card": smi}))
+    return by_path
+
+
+def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -1017,7 +1259,6 @@ def main() -> int:
     from repro_torch.configs import get_arch
     from repro_torch.kernels import _build
     from repro_torch.kernels.attention import ops as flash_ops
-    from repro_torch.models import build_model
     from repro_torch.kernels.rwkv6 import ops as rwkv6_ops
     from repro_torch.kernels.ssd import ops as ssd_ops
 
@@ -1045,64 +1286,19 @@ def main() -> int:
     # -- phase 3: full-width serving ---------------------------------------------
     t_phase = time.perf_counter()
     counters = {"flash_fwd": flash_ops, "ssd_fwd": ssd_ops, "rwkv6_fwd": rwkv6_ops}
-    by_path = {arch: phase3_serve(torch, arch, counters) for arch in SERVE_ARCHS}
+    serve_cfgs = [get_arch(a) for a in SERVE_ARCHS] + [moe_config(a, MOE_SERVE) for a in MOE_SERVE_ARCHS]
+    by_path = {depth_label(cfg): phase3_serve(torch, cfg, counters) for cfg in serve_cfgs}
     print(f"phase 3: wall {time.perf_counter() - t_phase:.1f} s", flush=True)
 
     # -- phase 4: where the time goes --------------------------------------------
     t_phase = time.perf_counter()
-    for arch in SERVE_ARCHS:
-        torch.cuda.empty_cache()
-        cfg = get_arch(arch)
-        params = build_model(cfg).init(1, device="cuda")
-        gen = torch.Generator(device="cuda").manual_seed(1)
-        prompt = lambda n: torch.randint(0, cfg.vocab_size, (8, n), device="cuda", generator=gen)
-        fwd = profile_prompt_forward(
-            build_model(cfg, impl="kernel"), params, prompt(512)
-        )
-        prof = profile_serving_loop(build_model(cfg), params, prompt(64))
-        del params
-        print(f"phase 4: {arch} prompt forward (kernels, 8 x 512 tokens): {fwd['wall_ms']:.3f} ms "
-              f"wall, {fwd['device_busy_ms']:.3f} ms device busy, device idle share "
-              f"{fwd['device_idle_share']:.3f}")
-        for name, ms in fwd["top_kernels_ms"]:
-            print(f"  {ms:8.4f} ms  {name}")
-        print(f"phase 4: {arch} serving loop, {prof['steps']} decode steps of 8 requests: "
-              f"{prof['wall_ms_per_step']:.3f} ms/step wall ({prof['traced_wall_ms_per_step']:.3f} "
-              f"traced), {prof['device_busy_ms_per_step']:.3f} ms/step device busy, device idle "
-              f"share {prof['device_idle_share']:.3f}")
-        for name, ms in prof["top_kernels_ms_per_step"]:
-            print(f"  {ms:8.4f} ms/step  {name}")
+    for cfg in serve_cfgs[:len(SERVE_ARCHS)] + [moe_config(a, MOE_PROFILE) for a in MOE_SERVE_ARCHS]:
+        phase4_profile(torch, cfg)
     print(f"phase 4: wall {time.perf_counter() - t_phase:.1f} s", flush=True)
 
     # -- phase 5: training ------------------------------------------------------
     t_phase = time.perf_counter()
-    print(f"phase 5: training on {smi}", flush=True)
-    phase5a_card_against_cpu(torch)
-    training = {arch: phase5b_train_cli(torch, arch, mb) for arch, mb in TRAIN_FULL_CLI}
-    training[f"granite-3-8b ({GRANITE_TRAIN_LAYERS} layers)"] = phase5b_granite_layers(torch)
-    print(f"phase 5b: training at full width, {TRAIN_BATCH} x {TRAIN_SEQ} tokens per step, "
-          f"{TRAIN_STEPS} steps, on {smi}:")
-    for name, m in training.items():
-        print(f"  {name}: {m['params'] / 1e9:.3f} B parameters, {m['microbatches']} microbatch(es): "
-              f"{m['ms_per_step']:.3f} ms/step after step 0 (steps {[round(x, 3) for x in m['step_ms']]}), "
-              f"{m['tokens_per_s']:.1f} tokens/s, mfu_6nt {m['mfu_6nt']:.4f}, peak memory "
-              f"{m['peak_gib']:.2f} GiB, losses {[round(x, 4) for x in m['losses']]}", flush=True)
-    train_cfgs = {"rwkv6-3b": get_arch("rwkv6-3b"), "zamba2-2.7b": get_arch("zamba2-2.7b"),
-                  f"granite-3-8b ({GRANITE_TRAIN_LAYERS} layers)": dataclasses.replace(
-                      get_arch("granite-3-8b"), n_layers=GRANITE_TRAIN_LAYERS)}
-    for name, cfg in train_cfgs.items():
-        by_path[f"train-eval {cfg.name} ({cfg.n_layers} layers)"] = phase5c_eval(torch, cfg, counters)
-    phase5d_checkpoint(torch)
-    for name, cfg in train_cfgs.items():
-        p = training[name]["profile"] = profile_train_step(torch, cfg, training[name]["microbatches"])
-        print(f"phase 5e: {name} train step, {training[name]['microbatches']} microbatch(es), on "
-              f"{smi}: {p['step_ms']:.3f} ms wall; gradient pass {p['grads_ms']:.3f} ms, AdamW "
-              f"update {p['update_ms']:.3f} ms, torch-path forward alone {p['forward_ms']:.3f} ms; "
-              f"device busy {p['device_busy_ms']:.3f} ms, idle share {p['device_idle_share']:.3f}, "
-              f"{p['kernel_launches']} kernels", flush=True)
-        for kernel, ms in p["top_kernels_ms"]:
-            print(f"  {ms:10.3f} ms  {kernel}")
-    print(json.dumps({"training": training, "card": smi}))
+    by_path.update(phase5_training(torch, smi, counters))
     print(f"phase 5: wall {time.perf_counter() - t_phase:.1f} s", flush=True)
 
     sources = {
@@ -1113,6 +1309,9 @@ def main() -> int:
         "rwkv6_fwd": ("src/repro_torch/kernels/rwkv6/csrc/rwkv6_fwd_sm90.cu",
                       "src/repro/kernels/rwkv6/chunked.py:34"),
     }
+    tensor_core = sum(c["flash_fwd_tensor_core"] for c in by_path.values())
+    numbers["flash_fwd"]["at_moe_serve_f32"]["launches"] = \
+        sum(c["flash_fwd"] for c in by_path.values()) - tensor_core
     kernels = []
     for name, (source, replaces) in sources.items():
         m = numbers[name]
@@ -1130,7 +1329,12 @@ def main() -> int:
             "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"],
             "library_ms": m["library_ms"],
+            **({"tensor_core_launches": tensor_core,
+                "float32_source": "src/repro_torch/kernels/attention/csrc/flash_fwd.cu"}
+               if name == "flash_fwd" else {}),
             **{key: m[key] for key in ("ms_eager", "library_ms_eager", "at_zamba2_hd80",
+                                       "at_internvl2_gqa7_hd64", "at_musicgen_mha_hd64",
+                                       "at_moe_serve_f32",
                                        "bound_f32_ms", "bound_f32_by", "ms_f32", "ms_eager_f32",
                                        "bound_f32_inputs_ms") if key in m},
         })

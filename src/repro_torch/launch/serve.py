@@ -12,24 +12,36 @@ teacher-forced ``decode_step``, exactly as the JAX driver does, and the
 prefill's last-position logits must agree with the decode's last logits
 (the decode == prefill invariant of the JAX tests).  Greedy decode follows.
 
+For a mixture-of-experts config the check's prompt forward runs at the
+capacity factor E / k (C >= S: no token can be dropped), because decode
+never drops: one token per group gives C = 4 >= k.  At the configured
+factor (1.25) a 512-token prompt forward would drop tokens, and it would
+no longer be the function decode computes.  The served tokens come from
+decode alone, so this changes none of them.  The JAX invariant test does
+the same with a factor of 8 (tests/test_arch_smoke.py).
+
 Differences from the JAX driver: ``--reduced`` can be turned off
 (``--no-reduced`` runs full width; the JAX flag is ``store_true`` with
 ``default=True``), ``--device`` picks the card or the CPU, ``--plan-chips``
 is absent until the planner is ported, and ``main`` returns a dict of
-results rather than the throughput alone.
+results rather than the throughput alone.  ``serve_config`` serves a
+given config (a depth-cut one, say) with the same steps.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.configs import get_arch
+from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device, synchronize
 from repro_torch.models import Model, build_model
+from repro_torch.models.moe import expert_capacity
 from repro_torch.obs import timer as obs_timer
 from repro_torch.train import make_prefill_step
 
@@ -58,6 +70,17 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     return ap
+
+
+def no_drop_config(cfg: ArchConfig) -> ArchConfig:
+    """``cfg`` with an MoE capacity factor of E / k, where every expert can
+    take every token of a group (C >= S): the prompt forward then drops
+    nothing, as decode drops nothing.  Other configs are returned as they
+    are."""
+    if cfg.moe is None:
+        return cfg
+    factor = cfg.moe.num_experts / cfg.moe.top_k
+    return dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=factor))
 
 
 def prefill_by_decode(
@@ -91,14 +114,15 @@ def main(argv=None) -> Dict[str, Any]:
     arch = get_arch(args.arch)
     if args.reduced:
         arch = arch.reduced()
+    return serve_config(arch, args, resolve_device(args.device))
+
+
+@torch.inference_mode()
+def serve_config(arch: ArchConfig, args: argparse.Namespace, device: torch.device) -> Dict[str, Any]:
+    """Serve ``arch`` with ``args``' requests, lengths and seed on
+    ``device``; returns ``main``'s dict."""
     if arch.frontend != "none":
-        raise SystemExit("serve driver supports token LMs (use token archs)")
-    device = resolve_device(args.device)
-    with torch.inference_mode():
-        return _serve(arch, args, device)
-
-
-def _serve(arch, args, device: torch.device) -> Dict[str, Any]:
+        raise SystemExit("the server supports token LMs (use token archs)")
     model = build_model(arch)
     params = model.init(args.seed, device)
     B = args.requests
@@ -108,8 +132,9 @@ def _serve(arch, args, device: torch.device) -> Dict[str, Any]:
     prompts = rng.integers(0, arch.vocab_size, (B, args.prompt_len), dtype=np.int32)
     prompts = torch.from_numpy(prompts).long().to(device)
 
-    # prompt forward through the kernels
-    prefill = make_prefill_step(build_model(arch, impl="kernel"))
+    # prompt forward through the kernels (an MoE at its no-drop capacity)
+    check_arch = no_drop_config(arch)
+    prefill = make_prefill_step(build_model(check_arch, impl="kernel"))
     with obs_timer("serve.prefill_kernels", requests=B, tokens=args.prompt_len) as tm:
         prefill_logits = prefill(params, {"tokens": prompts})
         synchronize(device)
@@ -138,6 +163,11 @@ def _serve(arch, args, device: torch.device) -> Dict[str, Any]:
     print(f"prompt forward (kernels) {t_prompt*1e3:.1f} ms; teacher-forced prefill {t_prefill*1e3:.1f} ms; "
           f"decode {t_decode*1e3:.1f} ms ({tps:.1f} tok/s aggregate)")
     print(f"prefill/decode last-logit max |diff| {diff:.6g} (tolerance {tol:.6g})")
+    if arch.moe is not None:
+        print(f"MoE: the check's prompt forward ran at capacity factor "
+              f"{check_arch.moe.capacity_factor:g} (no drops; configured "
+              f"{arch.moe.capacity_factor:g}); decode capacity "
+              f"{expert_capacity(arch, 1)} >= top-k {arch.moe.top_k} drops nothing")
     print("sample generations (token ids):")
     for b in range(min(B, 3)):
         print(f"  req{b}: {gen[b, :12].tolist()}...")

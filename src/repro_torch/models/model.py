@@ -2,8 +2,10 @@
 ``repro.models.model``).
 
 ``build_model(cfg)`` returns a :class:`Model` whose methods dispatch to the
-family's assembly: the dense transformer, the zamba2 hybrid or the RWKV6
-LM.  ``impl`` picks the paths of a full-sequence forward: ``torch`` (plain
+family's assembly: the transformer (dense, MoE, audio and VLM configs), the
+zamba2 hybrid or the RWKV6 LM.  The loss handles the modality quirks (the
+VLM patch prefix, MusicGen's codebook heads) and adds 0.01 x the MoE
+auxiliary loss, as JAX's does.  ``impl`` picks the paths of a full-sequence forward: ``torch`` (plain
 PyTorch, the training path) or ``kernel`` (every hand-written kernel the
 family has: flash attention, the SSD and WKV scans; forward only, as the
 kernels have no backward); decode always takes the torch paths.  ``remat``
@@ -70,12 +72,33 @@ class Model:
     def forward(self, params: PyTree, batch: Dict[str, torch.Tensor]):
         return _family_module(self.cfg).forward(params, self.cfg, batch, self.impl, self.remat)
 
+    def _targets_and_hidden_slice(self, batch: Dict[str, torch.Tensor], seq_len: int):
+        """((lo, hi) positions of the outputs, targets) aligned for next-token
+        prediction: MusicGen predicts every codebook of the next frame; the
+        VLM's prediction of token i sits at P - 1 + i, after the patches."""
+        cfg = self.cfg
+        if cfg.n_codebooks > 1:
+            return (0, seq_len - 1), batch["targets"][:, 1:]
+        if cfg.frontend == "vlm":
+            P = cfg.num_patches
+            S = batch["tokens"].shape[1]
+            return (P - 1, P - 1 + S - 1), batch["tokens"][:, 1:]
+        return (0, seq_len - 1), batch["tokens"][:, 1:]
+
+    @staticmethod
+    def _with_aux(ce: torch.Tensor, aux: Dict[str, torch.Tensor]):
+        loss = ce
+        if "moe_aux_loss" in aux:
+            loss = loss + 0.01 * aux["moe_aux_loss"]
+        return loss, {"ce": ce, **aux}
+
     def loss(self, params: PyTree, batch: Dict[str, torch.Tensor]):
         if self.loss_chunk is not None:
             return self._chunked_loss(params, batch)
         logits, aux = self.forward(params, batch)
-        ce = cross_entropy(logits[:, :-1], batch["tokens"][:, 1:])
-        return ce, {"ce": ce, **aux}
+        (lo, hi), targets = self._targets_and_hidden_slice(batch, logits.shape[1])
+        ce = cross_entropy(logits[:, lo:hi], targets)
+        return self._with_aux(ce, aux)
 
     def _chunked_loss(self, params: PyTree, batch: Dict[str, torch.Tensor]):
         """CE over sequence chunks of ``loss_chunk`` positions (and the
@@ -85,8 +108,8 @@ class Model:
         h, aux = _family_module(self.cfg).forward(
             params, self.cfg, batch, self.impl, self.remat, return_hidden=True
         )
-        targets = batch["tokens"][:, 1:]
-        h = h[:, : h.shape[1] - 1]
+        (lo, hi), targets = self._targets_and_hidden_slice(batch, h.shape[1])
+        h = h[:, lo:hi]
         T = h.shape[1]
         C = min(self.loss_chunk, T)
 
@@ -101,8 +124,8 @@ class Model:
         total = torch.zeros((), dtype=torch.float32, device=h.device)
         for start in range(0, T, C):
             total = total + chunk_ce(h[:, start : start + C], targets[:, start : start + C])
-        ce = total / targets.numel()
-        return ce, {"ce": ce, **aux}
+        ce = total / targets.numel()  # every codebook's target counts
+        return self._with_aux(ce, aux)
 
     # -- serving ---------------------------------------------------------------
     def init_cache(self, batch: int, max_len: int, device: DeviceLike = "cuda") -> PyTree:
@@ -125,10 +148,21 @@ def build_model(cfg: ArchConfig, impl: str = "torch", remat: str = "block") -> M
 def synthetic_batch(
     cfg: ArchConfig, batch: int, seq: int, seed: int = 0, device: DeviceLike = "cuda"
 ) -> Dict[str, torch.Tensor]:
-    """Random tokens of the right structure for a token LM (tests, smoke
-    runs), from a generator seeded with ``seed`` on ``device``."""
-    if cfg.frontend != "none":
-        raise NotImplementedError(f"{cfg.name}: frontend {cfg.frontend!r} is not ported yet")
+    """A random batch of the family's structure (tests, smoke runs), from a
+    generator seeded with ``seed`` on ``device``: tokens; for audio, frame
+    embeddings and per-codebook targets in their place; for VLM, patch
+    embeddings beside the tokens."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    return {"tokens": torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen, device=dev)}
+    dtype = transformer._torch_dtype(cfg.activation_dtype)
+    normal = lambda *shape: torch.randn(shape, generator=gen, device=dev).to(dtype)
+    if cfg.frontend == "audio":
+        return {
+            "frame_embeds": normal(batch, seq, cfg.d_model),
+            "targets": torch.randint(0, cfg.vocab_size, (batch, seq, cfg.n_codebooks),
+                                     generator=gen, device=dev),
+        }
+    out = {"tokens": torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen, device=dev)}
+    if cfg.frontend == "vlm":
+        out["patch_embeds"] = normal(batch, cfg.num_patches, cfg.d_model)
+    return out

@@ -1,11 +1,17 @@
-"""Decoder-only transformer LM assembly for the dense family (counterpart of
-``repro.models.transformer``).
+"""Decoder-only transformer LM assembly: the dense, MoE, audio and VLM
+families (counterpart of ``repro.models.transformer``).
 
 Parameters keep the JAX layout: every block's leaves are stacked on a
 leading layer axis, so a JAX parameter tree converts leaf for leaf
 (``repro_torch.interop``).  Where JAX scans over that axis, the port loops
 over it in Python over per-layer views (``unstack``; ``layer_params`` in
-decode).
+decode).  MoE blocks (``models/moe.py``) replace the MLP per config; the
+forward returns their auxiliary metrics averaged over layers, and decode
+discards them, as JAX does.  The modality frontends are the JAX package's
+stubs: audio configs take precomputed frame embeddings (B, S, d) in place
+of tokens and predict every codebook from one head each; VLM configs
+prepend precomputed patch embeddings (B, P, d) on a full forward, and
+decode takes tokens only.
 
 ``remat="block"`` recomputes each layer body in the backward pass, as JAX's
 ``jax.checkpoint`` around the scan body does; it acts only while autograd
@@ -20,6 +26,7 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from . import moe as moe_lib
 from .layers import (
     apply_mlp,
     apply_norm,
@@ -32,13 +39,6 @@ from .layers import (
 )
 
 PyTree = Any
-
-
-def _check_family(cfg: ArchConfig) -> None:
-    if cfg.moe is not None or cfg.frontend != "none" or cfg.n_codebooks > 1:
-        raise NotImplementedError(
-            f"{cfg.name}: the port's transformer covers the dense token family only"
-        )
 
 
 def _torch_dtype(name: str) -> torch.dtype:
@@ -94,8 +94,18 @@ def init_block(gen: torch.Generator, cfg: ArchConfig, device, lead=()) -> PyTree
     }
     if not cfg.parallel_block:
         p["norm_mlp"] = init_norm(cfg, device, lead=lead)
-    p["mlp"] = init_mlp(gen, cfg, dtype, device, lead=lead)
+    if cfg.moe is not None:
+        p["moe"] = moe_lib.init_moe(gen, cfg, dtype, device, lead=lead)
+    else:
+        p["mlp"] = init_mlp(gen, cfg, dtype, device, lead=lead)
     return p
+
+
+def _ffn(p: PyTree, h: torch.Tensor, cfg: ArchConfig) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The block's MLP, or its MoE layer with the layer's aux metrics."""
+    if cfg.moe is not None:
+        return moe_lib.apply_moe(p["moe"], h, cfg)
+    return apply_mlp(p["mlp"], h, cfg), {}
 
 
 def apply_block(
@@ -104,16 +114,18 @@ def apply_block(
     cfg: ArchConfig,
     positions: torch.Tensor,
     impl: str,
-) -> torch.Tensor:
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     if cfg.parallel_block:
         # Command-R style: one pre-norm, attention and MLP in parallel.
         h = apply_norm(p["norm_attn"], x, cfg)
         attn_out = run_attention(p["attn"], h, cfg, positions, impl)
-        return x + attn_out + apply_mlp(p["mlp"], h, cfg)
+        mlp_out, aux = _ffn(p, h, cfg)
+        return x + attn_out + mlp_out, aux
     h = apply_norm(p["norm_attn"], x, cfg)
     x = x + run_attention(p["attn"], h, cfg, positions, impl)
     h = apply_norm(p["norm_mlp"], x, cfg)
-    return x + apply_mlp(p["mlp"], h, cfg)
+    mlp_out, aux = _ffn(p, h, cfg)
+    return x + mlp_out, aux
 
 
 def apply_block_decode(
@@ -127,10 +139,10 @@ def apply_block_decode(
     h = apply_norm(p["norm_attn"], x, cfg)
     attn_out = run_attention_decode(p["attn"], h, cfg, cache, position, write_pos)
     if cfg.parallel_block:
-        return x + attn_out + apply_mlp(p["mlp"], h, cfg)
+        return x + attn_out + _ffn(p, h, cfg)[0]
     x = x + attn_out
     h = apply_norm(p["norm_mlp"], x, cfg)
-    return x + apply_mlp(p["mlp"], h, cfg)
+    return x + _ffn(p, h, cfg)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -140,24 +152,41 @@ def init_params(gen: torch.Generator, cfg: ArchConfig, device) -> PyTree:
     """Random parameters drawn on ``device`` from ``gen`` (a generator on
     that device).  The draws cannot match JAX's; parity tests convert JAX's
     parameters instead."""
-    _check_family(cfg)
     dtype = _torch_dtype(cfg.param_dtype)
     p: Dict[str, PyTree] = {
         "layers": init_block(gen, cfg, device, lead=(cfg.n_layers,)),
         "final_norm": init_norm(cfg, device),
-        "embed": embed_init(gen, (cfg.padded_vocab_size, cfg.d_model), dtype, device),
     }
-    if not cfg.tied_embeddings:
+    if cfg.frontend != "audio":
+        p["embed"] = embed_init(gen, (cfg.padded_vocab_size, cfg.d_model), dtype, device)
+    if cfg.n_codebooks > 1:
+        p["lm_heads"] = embed_init(
+            gen, (cfg.n_codebooks, cfg.d_model, cfg.padded_vocab_size), dtype, device
+        )
+    elif not cfg.tied_embeddings:
         p["lm_head"] = embed_init(gen, (cfg.d_model, cfg.padded_vocab_size), dtype, device)
     return p
 
 
-def embed_inputs(p: PyTree, cfg: ArchConfig, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """Token embedding.  Returns (B, S, d) activations."""
-    return p["embed"][batch["tokens"]].to(_torch_dtype(cfg.activation_dtype))
+def embed_inputs(
+    p: PyTree, cfg: ArchConfig, batch: Dict[str, torch.Tensor], decode: bool = False
+) -> torch.Tensor:
+    """Token / frontend embedding.  Returns (B, S, d) activations."""
+    dtype = _torch_dtype(cfg.activation_dtype)
+    if cfg.frontend == "audio":
+        # stub frontend: precomputed EnCodec frame embeddings
+        return batch["frame_embeds"].to(dtype)
+    x = p["embed"][batch["tokens"]].to(dtype)
+    if cfg.frontend == "vlm" and not decode:
+        # stub frontend: precomputed InternViT patch embeddings prepended
+        # (full forward only: in decode the patches are already in the cache)
+        x = torch.cat([batch["patch_embeds"].to(dtype), x], dim=1)
+    return x
 
 
 def logits_from_hidden(p: PyTree, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
+    if cfg.n_codebooks > 1:
+        return torch.einsum("bsd,qdv->bsqv", h, p["lm_heads"])
     head = p["embed"].T if cfg.tied_embeddings else p["lm_head"]
     return h @ head
 
@@ -172,17 +201,20 @@ def forward(
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Training / prefill forward pass.  Returns (logits, aux), or the
     final-normed hidden states in place of the logits with
-    ``return_hidden``."""
-    _check_family(cfg)
+    ``return_hidden``; aux holds each MoE metric averaged over layers (empty
+    without MoE)."""
     x = embed_inputs(p, cfg, batch)
     positions = torch.arange(x.shape[1], device=x.device)
     body = remat_body(apply_block, remat)
+    per_layer: List[Dict[str, torch.Tensor]] = []
     for layer_p in unstack(p["layers"]):
-        x = body(layer_p, x, cfg, positions, impl)
+        x, aux = body(layer_p, x, cfg, positions, impl)
+        per_layer.append(aux)
     x = apply_norm(p["final_norm"], x, cfg)
+    aux_mean = {k: torch.stack([a[k] for a in per_layer]).mean() for k in per_layer[0]}
     if return_hidden:
-        return x, {}
-    return logits_from_hidden(p, cfg, x), {}
+        return x, aux_mean
+    return logits_from_hidden(p, cfg, x), aux_mean
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, device) -> PyTree:
@@ -202,7 +234,7 @@ def decode_step(
     p: PyTree,
     cfg: ArchConfig,
     cache: PyTree,
-    batch: Dict[str, torch.Tensor],  # tokens: (B, 1)
+    batch: Dict[str, torch.Tensor],  # tokens: (B, 1) (or frame_embeds (B, 1, d))
     position: int,  # current write index
 ) -> Tuple[torch.Tensor, PyTree]:
     """One token of autoregressive decoding with a per-layer KV cache.
@@ -211,8 +243,7 @@ def decode_step(
     full-width cache is the largest buffer of a serving run after the
     weights, and a copy per token would double it.
     """
-    _check_family(cfg)
-    x = embed_inputs(p, cfg, batch)
+    x = embed_inputs(p, cfg, batch, decode=True)
     if cfg.sliding_window is not None:
         write_pos = position % cache["k"].shape[2]  # ring buffer
     else:

@@ -89,7 +89,7 @@ def forward(
     for g in range(n_groups(cfg)):
         for layer_p in layers[g * L : (g + 1) * L]:
             x = body(layer_p, x, cfg, impl)
-        x = apply_block(p["shared_attn"], x, cfg, positions, impl)
+        x, _ = apply_block(p["shared_attn"], x, cfg, positions, impl)
     x = apply_norm(p["final_norm"], x, cfg)
     if return_hidden:
         return x, {}

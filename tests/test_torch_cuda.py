@@ -120,6 +120,18 @@ def test_flash_kernel_matches_plain_version(cuda, case, dtype):
     _check_flash(case, dtype)
 
 
+MODALITY_CASES = [  # (B, S, H, K, hd, blk_q, blk_k, window) of the modality configs' prompt forwards
+    (8, 768, 14, 2, 64, 128, 128, None),  # internvl2-1b: GQA 7:1, 256 patches + 512 tokens
+    (8, 512, 32, 32, 64, 128, 128, None),  # musicgen-large: MHA at hd 64
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", MODALITY_CASES)
+def test_flash_kernel_at_the_modality_shapes(cuda, case, dtype):
+    _check_flash(case, dtype)
+
+
 @pytest.mark.parametrize("case", BF16_CASES)
 def test_flash_tensor_core_kernel_matches_plain_version(cuda, case):
     _check_flash(case, torch.bfloat16)
@@ -266,6 +278,61 @@ def test_kernel_prefill_matches_torch_path_bf16(cuda, name):
     assert ops.launches - before == want
     assert ops.tensor_core_launches - before_tc == want
     torch.testing.assert_close(fast.float(), plain.float(), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("name", ["mixtral-8x7b", "phi3.5-moe-42b-a6.6b", "internvl2-1b", "musicgen-large"])
+def test_forward_and_loss_on_the_card_match_cpu(cuda, name):
+    """The reduced float32 model on the card against the CPU from the same
+    parameters and batch: logits, loss and every metric (the MoE's aux
+    loss and drop rate) at 2e-4; the kernel forward launches flash once per
+    layer, except mixtral's, whose 16 positions exceed its reduced window
+    of 8 and take the banded path."""
+    from repro_torch import tree
+    from repro_torch.models import synthetic_batch
+
+    cfg = dataclasses.replace(get_arch(name).reduced(), param_dtype="float32", activation_dtype="float32")
+    params = build_model(cfg).init(0, device="cpu")
+    batch = synthetic_batch(cfg, 2, 16, seed=1, device="cpu")
+    on_card = lambda t: tree.tree_map(lambda x: x.to(cuda), t)
+    want_logits, _ = build_model(cfg).forward(params, batch)
+    want_loss, want_m = build_model(cfg).loss(params, batch)
+    got_logits, _ = build_model(cfg).forward(on_card(params), on_card(batch))
+    got_loss, got_m = build_model(cfg).loss(on_card(params), on_card(batch))
+    torch.testing.assert_close(got_logits.cpu(), want_logits, atol=2e-4, rtol=2e-4)
+    torch.testing.assert_close(got_loss.cpu(), want_loss, atol=2e-4, rtol=2e-4)
+    assert got_m.keys() == want_m.keys()
+    for k in want_m:
+        torch.testing.assert_close(got_m[k].cpu(), want_m[k], atol=2e-4, rtol=2e-4)
+    before = ops.launches
+    with torch.inference_mode():
+        fast, _ = build_model(cfg, impl="kernel").forward(on_card(params), on_card(batch))
+    S = fast.shape[1]
+    assert ops.launches - before == (0 if cfg.sliding_window and S > cfg.sliding_window else cfg.n_layers)
+    torch.testing.assert_close(fast.cpu(), want_logits, atol=2e-4, rtol=2e-4)
+
+
+def test_mixtral_greedy_tokens_on_the_card_match_cpu(cuda):
+    """Reduced float32 mixtral served greedily (teacher-forced prefill past
+    its window of 8, then 12 tokens) on the card and on the CPU: the same
+    tokens, last prompt logits at 2e-4."""
+    from repro_torch import tree
+    from repro_torch.launch import serve
+
+    cfg = dataclasses.replace(get_arch("mixtral-8x7b").reduced(), param_dtype="float32",
+                              activation_dtype="float32")
+    model = build_model(cfg)
+    params = model.init(0, device="cpu")
+    prompts = torch.randint(0, cfg.vocab_size, (3, 10), generator=torch.Generator().manual_seed(5))
+    out = {}
+    with torch.inference_mode():
+        for device in ("cpu", cuda):
+            p = tree.tree_map(lambda x: x.to(device), params)
+            cache = model.init_cache(3, 22, device=device)
+            last, cache = serve.prefill_by_decode(model, p, cache, prompts.to(device))
+            out[str(device)] = (last.cpu(), serve.greedy_decode(model, p, cache, last, 10, 12).cpu())
+    (l_cpu, t_cpu), (l_gpu, t_gpu) = out["cpu"], out[str(cuda)]
+    torch.testing.assert_close(l_gpu, l_cpu, atol=2e-4, rtol=2e-4)
+    assert torch.equal(t_gpu, t_cpu)
 
 
 def test_rwkv6_time_mix_kernel_route_takes_chunk_128(cuda):

@@ -64,6 +64,21 @@ def test_flash_attention_head_dim_192(dtype):
     _compare(jax_in, torch_in, dtype, blk_q=64, blk_k=64)
 
 
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+@pytest.mark.parametrize(
+    "B,S,H,K,hd",
+    [
+        (1, 256, 14, 2, 64),  # internvl2-1b's GQA 7:1 at its head dim (S cut from 768)
+        (1, 128, 32, 32, 64),  # musicgen-large's MHA, 32 heads of 64 (S cut from 512)
+    ],
+)
+def test_flash_attention_modality_shapes(B, S, H, K, hd, dtype):
+    """The head layouts the modality configs give the kernel, which no
+    sweep case had: 14 query heads over 2 KV heads, and 32 over 32."""
+    jax_in, torch_in = _inputs(5, B, S, H, K, hd, dtype)
+    _compare(jax_in, torch_in, dtype, blk_q=128, blk_k=128)
+
+
 @pytest.mark.parametrize("reduced", [False, True])
 @pytest.mark.parametrize("name", sorted(all_archs()))
 def test_every_config_head_dim_is_taken_by_the_bf16_kernel(name, reduced):

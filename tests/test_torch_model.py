@@ -1,6 +1,7 @@
 """Model parity: the port's forward, loss and decode against the JAX
-package's ``Model`` on the reduced dense configs, from JAX-initialised
-parameters converted with ``params_from_jax``."""
+package's ``Model`` on the reduced transformer configs (dense, MoE, VLM,
+audio), from JAX-initialised parameters converted with
+``params_from_jax``."""
 
 import pytest
 
@@ -10,16 +11,24 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from repro.configs import all_archs as jax_all_archs
 from repro.models import build_model as jax_build_model
+from repro_torch.configs import all_archs
 from repro_torch.models import build_model
 from torch_parity import (
     BF16_TOL,
     DENSE_ARCHS,
     F32_TOL,
+    MODALITY_ARCHS,
+    MOE_ARCHS,
     assert_close,
     cfg_pair,
     f32_pair,
+    jax_batch,
+    no_drop_pair,
+    np_batch,
     to_torch,
+    torch_batch,
 )
 
 B, S = 2, 16
@@ -32,22 +41,30 @@ def _setup(jcfg, seed=0):
     return jmodel, jparams, tokens
 
 
-@pytest.mark.parametrize("name", DENSE_ARCHS)
+@pytest.mark.parametrize("name", DENSE_ARCHS + MOE_ARCHS + MODALITY_ARCHS)
 def test_forward_and_loss_match_jax(name):
+    """Logits (B, S, V); (B, P + S, V) for the VLM, (B, S, codebooks, V)
+    for audio), the aux metrics, the loss and its CE."""
     jcfg, tcfg = f32_pair(name)
-    jmodel, jparams, tokens = _setup(jcfg)
-    want_logits, _ = jax.jit(jmodel.forward)(jparams, {"tokens": jnp.asarray(tokens)})
-    want_loss, _ = jax.jit(jmodel.loss)(jparams, {"tokens": jnp.asarray(tokens)})
+    jmodel, jparams, _ = _setup(jcfg)
+    np_b = np_batch(jcfg, B, S, seed=0)
+    want_logits, want_aux = jax.jit(jmodel.forward)(jparams, jax_batch(np_b))
+    want_loss, want_metrics = jax.jit(jmodel.loss)(jparams, jax_batch(np_b))
 
     params = to_torch(jparams)
-    batch = {"tokens": torch.from_numpy(tokens).long()}
+    batch = torch_batch(np_b)
     model = build_model(tcfg)
-    logits, _ = model.forward(params, batch)
-    assert logits.shape == (B, S, tcfg.padded_vocab_size)
+    logits, aux = model.forward(params, batch)
+    S_out = S + (tcfg.num_patches if tcfg.frontend == "vlm" else 0)
+    V = tcfg.padded_vocab_size
+    assert logits.shape == ((B, S_out, tcfg.n_codebooks, V) if tcfg.n_codebooks > 1 else (B, S_out, V))
     assert_close(logits, want_logits, F32_TOL)
+    assert aux.keys() == want_aux.keys()
+    for k in want_aux:
+        assert_close(aux[k], want_aux[k], F32_TOL)
     loss, metrics = model.loss(params, batch)
     assert_close(loss, want_loss, F32_TOL)
-    assert_close(metrics["ce"], want_loss, F32_TOL)
+    assert_close(metrics["ce"], want_metrics["ce"], F32_TOL)
 
 
 def test_forward_bf16_matches_jax():
@@ -59,6 +76,23 @@ def test_forward_bf16_matches_jax():
     got, _ = build_model(tcfg, impl="kernel").forward(
         params, {"tokens": torch.from_numpy(tokens).long()}
     )
+    assert got.dtype == torch.bfloat16
+    assert_close(got, want, BF16_TOL)
+
+
+@pytest.mark.parametrize("name", MODALITY_ARCHS)
+def test_forward_bf16_matches_jax_modality(name):
+    """bf16 parameters and activations through the kernel paths (the plain
+    versions here), against JAX at 2e-2.  (An MoE model in bf16 can route
+    a near-tie differently from JAX: tests/test_torch_moe.py holds its bf16
+    routing and its layer instead.)"""
+    jcfg, tcfg = cfg_pair(name)
+    jmodel, jparams, _ = _setup(jcfg, seed=1)
+    np_b = np_batch(jcfg, B, S, seed=1)
+    want, _ = jax.jit(jmodel.forward)(jparams, jax_batch(np_b))
+    params = to_torch(jparams)
+    assert params["layers"]["attn"]["wq"].dtype == torch.bfloat16
+    got, _ = build_model(tcfg, impl="kernel").forward(params, torch_batch(np_b))
     assert got.dtype == torch.bfloat16
     assert_close(got, want, BF16_TOL)
 
@@ -85,11 +119,12 @@ def test_decode_step_matches_jax_step_by_step(name, window):
 
 
 @pytest.mark.parametrize("attention", ["torch", "flash"])
-@pytest.mark.parametrize("name", ["granite-3-8b", "nemotron-4-340b"])
+@pytest.mark.parametrize("name", ["granite-3-8b", "nemotron-4-340b"] + MOE_ARCHS)
 def test_decode_matches_prefill(name, attention):
     """Teacher-forced decode reproduces the full-sequence logits (the JAX
-    invariant of test_arch_smoke.py, same bound)."""
-    jcfg, tcfg = f32_pair(name)
+    invariant of test_arch_smoke.py, same bound); an MoE at the no-drop
+    capacity E / k, as the serve check runs it (JAX's test takes 8)."""
+    jcfg, tcfg = no_drop_pair(f32_pair(name))
     _, jparams, tokens = _setup(jcfg, seed=3)
     params = to_torch(jparams)
     model = build_model(tcfg, impl="kernel" if attention == "flash" else "torch")
@@ -101,12 +136,17 @@ def test_decode_matches_prefill(name, attention):
         assert float((logits_t[:, 0] - full[:, t]).abs().max()) < 3e-4
 
 
-@pytest.mark.parametrize("name", DENSE_ARCHS)
+@pytest.mark.parametrize("name", sorted(jax_all_archs()))
 def test_param_count_matches_jax(name):
     for reduced in (False, True):
         jcfg, tcfg = cfg_pair(name, reduced=reduced)
         assert tcfg.param_count() == jcfg.param_count()
         assert tcfg.padded_vocab_size == jcfg.padded_vocab_size
+
+
+def test_port_registers_every_jax_config():
+    assert sorted(all_archs()) == sorted(jax_all_archs())
+    assert len(all_archs()) == 11
 
 
 def test_converted_params_keep_paths_shapes_and_dtypes():

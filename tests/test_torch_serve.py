@@ -2,6 +2,8 @@
 by the JAX package's ``decode_step`` (float32, the same converted
 parameters), and the port's serve CLI on the CPU."""
 
+import dataclasses
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -13,7 +15,7 @@ import numpy as np
 from repro.models import build_model as jax_build_model
 from repro_torch.launch import serve
 from repro_torch.models import build_model
-from torch_parity import f32_pair, to_torch
+from torch_parity import MOE_ARCHS, f32_pair, to_torch
 
 
 def _jax_serve_loop(jmodel, jparams, prompts, gen_len):
@@ -34,7 +36,9 @@ def _jax_serve_loop(jmodel, jparams, prompts, gen_len):
     return np.concatenate(out, axis=1), last
 
 
-@pytest.mark.parametrize("name", ["granite-3-8b", "command-r-35b", "zamba2-2.7b", "rwkv6-3b"])
+@pytest.mark.parametrize(
+    "name", ["granite-3-8b", "command-r-35b", "zamba2-2.7b", "rwkv6-3b", "mixtral-8x7b"]
+)
 def test_greedy_tokens_match_jax(name):
     jcfg, tcfg = f32_pair(name)
     jmodel = jax_build_model(jcfg)
@@ -75,3 +79,39 @@ def test_serve_cli_flags():
     assert ap.parse_args([]).reduced is True
     assert ap.parse_args(["--no-reduced"]).reduced is False
     assert ap.parse_args([]).device == "cuda"
+
+
+@pytest.mark.parametrize("name", MOE_ARCHS)
+def test_serve_moe_on_cpu(name, capsys):
+    """The reduced MoE server on the CPU in float32, through the launcher's
+    ``serve_config``: the check's prompt forward runs at the no-drop
+    capacity, takes the plain versions (no launch) and agrees with decode
+    at the float32 bound, and the launcher says so.  (In bf16 a routing
+    near-tie can flip between the two paths: PERF.md.)"""
+    from repro_torch.kernels.attention import ops as flash_ops
+
+    _, tcfg = f32_pair(name)
+    args = serve.build_parser().parse_args(["--requests", "2", "--prompt-len", "12", "--gen-len", "4"])
+    before = flash_ops.launches
+    result = serve.serve_config(tcfg, args, torch.device("cpu"))
+    assert flash_ops.launches == before
+    assert result["tokens"].shape == (2, 4) and result["tokens"].max() < tcfg.vocab_size
+    assert result["prefill_decode_tol"] == serve.PREFILL_DECODE_TOL["float32"]
+    assert result["prefill_decode_max_abs_diff"] <= result["prefill_decode_tol"]
+    factor = tcfg.moe.num_experts // tcfg.moe.top_k
+    assert f"capacity factor {factor} (no drops; configured 1.25)" in capsys.readouterr().out
+
+
+def test_serve_check_capacity_is_no_drop_and_decode_never_drops():
+    from repro_torch.configs import get_arch
+    from repro_torch.models.moe import expert_capacity
+
+    for name in MOE_ARCHS:
+        cfg = get_arch(name)
+        check = serve.no_drop_config(cfg)
+        assert check.moe.capacity_factor == cfg.moe.num_experts / cfg.moe.top_k
+        assert dataclasses.replace(check, moe=cfg.moe) == cfg  # nothing else changes
+        assert expert_capacity(check, 512) >= 512
+        assert expert_capacity(cfg, 1) >= cfg.moe.top_k
+    granite = get_arch("granite-3-8b")
+    assert serve.no_drop_config(granite) is granite

@@ -22,9 +22,21 @@ from repro_torch.configs import all_archs
 from repro_torch.models import build_model
 from repro_torch.optim import adamw
 from repro_torch.train import make_eval_step, make_train_step
-from torch_parity import BF16_TOL, F32_TOL, assert_close, f32_pair, jax_setup, to_torch
+from torch_parity import (
+    BF16_TOL,
+    F32_TOL,
+    assert_close,
+    f32_pair,
+    jax_batch,
+    jax_setup,
+    np_batch,
+    to_torch,
+    torch_batch,
+)
 
 TRAIN_ARCHS = ["granite-3-8b", "zamba2-2.7b", "rwkv6-3b"]
+# the rest of the transformer family: MoE (its loss adds the aux term), VLM, audio
+MORE_ARCHS = ["mixtral-8x7b", "internvl2-1b", "musicgen-large"]
 
 
 def _assert_trees_close(got, want, tol=F32_TOL):
@@ -161,11 +173,11 @@ def _loss_grads(model, params, batch):
     return loss, torch.autograd.grad(loss, tree.leaves(live))
 
 
-@pytest.mark.parametrize("name", TRAIN_ARCHS)
+@pytest.mark.parametrize("name", TRAIN_ARCHS + MORE_ARCHS)
 def test_remat_block_gradients_equal_remat_none(name):
     _, tcfg = f32_pair(name)
     params = build_model(tcfg).init(0, device="cpu")
-    batch = {"tokens": torch.from_numpy(np.random.default_rng(3).integers(0, tcfg.vocab_size, (2, 16)))}
+    batch = torch_batch(np_batch(tcfg, 2, 16, seed=3))
     l1, g1 = _loss_grads(build_model(tcfg, remat="block"), params, batch)
     l2, g2 = _loss_grads(build_model(tcfg, remat="none"), params, batch)
     assert float(l1.detach()) == float(l2.detach())
@@ -179,17 +191,18 @@ def test_remat_dots_is_not_ported():
         model.loss(model.init(0, device="cpu"), {"tokens": torch.zeros(1, 4, dtype=torch.long)})
 
 
-@pytest.mark.parametrize("name", TRAIN_ARCHS)
+@pytest.mark.parametrize("name", TRAIN_ARCHS + MORE_ARCHS)
 def test_chunked_loss_matches_full_loss_and_jax(name):
     """As tests/test_arch_smoke.py:163: 19 positions, chunks of 8 plus a
     remainder of 3; equal to the full loss (and its gradients) within 1e-5,
-    and to JAX's chunked loss within 2e-4."""
+    and to JAX's chunked loss within 2e-4 (the VLM's positions after its
+    patches; musicgen's every codebook, counted in the mean)."""
     jcfg, tcfg = f32_pair(name)
-    jmodel, jparams, tokens = jax_setup(jcfg, 0, 2, 20)
-    want, _ = jax.jit(dataclasses.replace(jmodel, loss_chunk=8).loss)(
-        jparams, {"tokens": jnp.asarray(tokens)})
+    jmodel, jparams, _ = jax_setup(jcfg, 0, 2, 20)
+    np_b = np_batch(jcfg, 2, 20, seed=0)
+    want, _ = jax.jit(dataclasses.replace(jmodel, loss_chunk=8).loss)(jparams, jax_batch(np_b))
     params = to_torch(jparams)
-    batch = {"tokens": torch.from_numpy(tokens).long()}
+    batch = torch_batch(np_b)
     full = build_model(tcfg)
     l1, g1 = _loss_grads(full, params, batch)
     l2, g2 = _loss_grads(dataclasses.replace(full, loss_chunk=8), params, batch)

@@ -1,5 +1,6 @@
 """The port's train step against ``jax.jit(make_train_step)``: granite-3-8b,
-zamba2-2.7b and rwkv6-3b (reduced, float32), microbatches 1 and 2, one and
+zamba2-2.7b, rwkv6-3b and mixtral-8x7b (whose loss adds 0.01 x the MoE aux
+loss in each microbatch; reduced, float32), microbatches 1 and 2, one and
 three steps from the same parameters and batches.  Apart from
 tests/test_torch_train.py because JAX's compiles take most of its time."""
 
@@ -18,7 +19,7 @@ from repro_torch.optim import adamw
 from repro_torch.train import make_train_step
 from torch_parity import assert_close, f32_pair, jax_setup, to_torch
 
-TRAIN_ARCHS = ["granite-3-8b", "zamba2-2.7b", "rwkv6-3b"]
+TRAIN_ARCHS = ["granite-3-8b", "zamba2-2.7b", "rwkv6-3b", "mixtral-8x7b"]
 
 
 def _assert_trees_close(got, want):
@@ -48,6 +49,9 @@ def test_train_steps_match_jax(name, microbatches):
         jparams, jstate, jm = jstep(jparams, jstate, {"tokens": jnp.asarray(tokens)})
         params, state, m = step(params, state, {"tokens": torch.from_numpy(tokens).long()})
         assert m.keys() == jm.keys()
+        if jcfg.moe is not None and microbatches == 1:
+            assert "moe_aux_loss" in m
+            assert_close(m["loss"], m["ce"] + 0.01 * m["moe_aux_loss"])
         for key in jm:
             assert_close(m[key], jm[key])
         if i in (0, 2):

@@ -15,6 +15,8 @@ from repro_torch.configs import get_arch as torch_get_arch
 from repro_torch.interop import params_from_jax
 
 DENSE_ARCHS = ["granite-3-8b", "llama3-70b", "qwen1.5-110b", "nemotron-4-340b", "command-r-35b"]
+MOE_ARCHS = ["mixtral-8x7b", "phi3.5-moe-42b-a6.6b"]
+MODALITY_ARCHS = ["internvl2-1b", "musicgen-large"]
 F32_TOL = dict(atol=2e-4, rtol=2e-4)
 BF16_TOL = dict(atol=2e-2, rtol=2e-2)
 
@@ -35,6 +37,22 @@ def f32_pair(name, **overrides):
     return cfg_pair(name, param_dtype="float32", activation_dtype="float32", **overrides)
 
 
+def with_capacity(pair, factor):
+    """A config pair with the MoE capacity factor set to ``factor`` (each
+    package has its own ``MoEConfig``); a pair without MoE as it is."""
+    return tuple(
+        cfg if cfg.moe is None
+        else dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=factor))
+        for cfg in pair
+    )
+
+
+def no_drop_pair(pair):
+    """The pair at the serve check's no-drop capacity factor, E / k."""
+    cfg = pair[1]
+    return pair if cfg.moe is None else with_capacity(pair, cfg.moe.num_experts / cfg.moe.top_k)
+
+
 def rand(rng, shape, scale=1.0):
     return (rng.standard_normal(shape, dtype=np.float32) * scale).astype(np.float32)
 
@@ -52,6 +70,42 @@ def as_np(x):
 
 def assert_close(got, want, tol=F32_TOL):
     np.testing.assert_allclose(as_np(got), as_np(want), **tol)
+
+
+def np_batch(cfg, B, S, seed):
+    """A batch of the family's structure, made with numpy from ``seed``:
+    tokens (the draw ``jax_setup`` makes); for audio, frame embeddings and
+    per-codebook targets instead; for VLM, patch embeddings beside them."""
+    rng = np.random.default_rng(seed)
+    if cfg.frontend == "audio":
+        frames = rand(rng, (B, S, cfg.d_model))
+        targets = rng.integers(0, cfg.vocab_size, (B, S, cfg.n_codebooks), dtype=np.int32)
+        return {"frame_embeds": frames, "targets": targets}
+    out = {"tokens": rng.integers(0, cfg.vocab_size, (B, S), dtype=np.int32)}
+    if cfg.frontend == "vlm":
+        out["patch_embeds"] = rand(rng, (B, cfg.num_patches, cfg.d_model))
+    return out
+
+
+def jax_batch(batch):
+    return {k: jnp.asarray(v) for k, v in batch.items()}
+
+
+def torch_batch(batch, device="cpu"):
+    """A numpy batch as the port's tensors: ids as int64, embeddings float32."""
+    out = {}
+    for k, v in batch.items():
+        t = torch.from_numpy(np.array(v))
+        out[k] = (t if t.is_floating_point() else t.long()).to(device)
+    return out
+
+
+def step_slice(batch, t):
+    """Decode step ``t``'s input: one token, or one audio frame (a VLM
+    decodes tokens only; its patches are not fed again)."""
+    if "frame_embeds" in batch:
+        return {"frame_embeds": batch["frame_embeds"][:, t : t + 1]}
+    return {"tokens": batch["tokens"][:, t : t + 1]}
 
 
 # ---------------------------------------------------------------------------
@@ -92,22 +146,24 @@ def check_forward(name, impl, f32=True, B=2, S=16, seed=0):
     from repro_torch.models import build_model
 
     jcfg, tcfg = f32_pair(name) if f32 else cfg_pair(name)
-    jmodel, jparams, tokens = jax_setup(jcfg, seed, B, S)
-    want, _ = jax.jit(jmodel.forward)(jparams, {"tokens": jnp.asarray(tokens)})
+    jmodel, jparams, _ = jax_setup(jcfg, seed, B, S)
+    batch = np_batch(jcfg, B, S, seed)
+    want, _ = jax.jit(jmodel.forward)(jparams, jax_batch(batch))
     model = build_model(tcfg, impl=impl)
-    got, _ = model.forward(to_torch(jparams), {"tokens": torch.from_numpy(tokens).long()})
-    assert got.shape == (B, S, tcfg.padded_vocab_size)
+    got, _ = model.forward(to_torch(jparams), torch_batch(batch))
+    assert got.shape == want.shape
     assert got.dtype == (torch.float32 if f32 else torch.bfloat16)
     assert_close(got, want, F32_TOL if f32 else BF16_TOL)
 
 
-def check_decode_steps(name, steps=10, B=2, seed=2):
+def check_decode_steps(name, steps=10, B=2, seed=2, **overrides):
     """``decode_step`` against JAX's, step by step: logits and every cache
     leaf (the port writes its cache in place; JAX returns a new one)."""
     from repro_torch.models import build_model
 
-    jcfg, tcfg = f32_pair(name)
-    jmodel, jparams, tokens = jax_setup(jcfg, seed, B, steps)
+    jcfg, tcfg = f32_pair(name, **overrides)
+    jmodel, jparams, _ = jax_setup(jcfg, seed, B, steps)
+    batch = np_batch(jcfg, B, steps, seed)
     jcache = jmodel.init_cache(B, steps)
     jstep = jax.jit(jmodel.decode_step)
     model = build_model(tcfg)
@@ -115,10 +171,8 @@ def check_decode_steps(name, steps=10, B=2, seed=2):
     cache = model.init_cache(B, steps, device="cpu")
     assert {k: tuple(v.shape) for k, v in cache.items()} == {k: v.shape for k, v in jcache.items()}
     for t in range(steps):
-        want, jcache = jstep(jparams, jcache, {"tokens": jnp.asarray(tokens[:, t : t + 1])}, jnp.array(t))
-        got, cache = model.decode_step(
-            params, cache, {"tokens": torch.from_numpy(tokens[:, t : t + 1]).long()}, t
-        )
+        want, jcache = jstep(jparams, jcache, jax_batch(step_slice(batch, t)), jnp.array(t))
+        got, cache = model.decode_step(params, cache, torch_batch(step_slice(batch, t)), t)
         assert_close(got, want, F32_TOL)
         for leaf in jcache:
             assert_close(cache[leaf], jcache[leaf], F32_TOL)
@@ -126,10 +180,11 @@ def check_decode_steps(name, steps=10, B=2, seed=2):
 
 def check_decode_matches_prefill(name, impl, B=2, S=12, seed=3):
     """Teacher-forced decode reproduces the full-sequence logits (the JAX
-    invariant of test_arch_smoke.py, same bound)."""
+    invariant of test_arch_smoke.py, same bound); an MoE config at the
+    no-drop capacity, as there."""
     from repro_torch.models import build_model
 
-    jcfg, tcfg = f32_pair(name)
+    jcfg, tcfg = no_drop_pair(f32_pair(name))
     _, jparams, tokens = jax_setup(jcfg, seed, B, S)
     params = to_torch(jparams)
     model = build_model(tcfg, impl=impl)
