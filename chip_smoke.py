@@ -9,12 +9,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    kernel of the port from the sources in this checkout (``nvcc -Xptxas
    -v``), print the build time and each kernel's registers and spills.
 2. Hold each kernel against its plain PyTorch version on the card, float32
-   at 2e-4 and bfloat16 at 2e-2.  Flash attention runs two kernels, chosen
-   by dtype: bf16 goes to the tensor-core kernel (flash_fwd_sm90.cu, whose
-   registers, shared memory and spills are printed here), float32 to the
-   CUDA-core kernel (flash_fwd.cu); both run the sweep of the JAX package's
-   kernel tests (MHA, GQA 2:1 and 4:1, MQA; windows 32/96/1024; blocks
-   128/32; S = 12) plus head dim 80, and bf16 also head dim 192.  Then the
+   at 2e-4 and bfloat16 at 2e-2.  Flash attention runs two tensor-core
+   kernels, chosen by dtype and each checked to be the one launched: bf16
+   goes to flash_fwd_sm90.cu, float32 to flash_fwd_tf32_sm90.cu (split-TF32
+   products; the registers, shared memory and spills of both are printed
+   here); both run the sweep of the JAX package's kernel tests (MHA, GQA
+   2:1 and 4:1, MQA; windows 32/96/1024; blocks 128/32; S = 12) plus head
+   dim 80 and the serve-like cases of tests/test_torch_cuda.py, and bf16
+   also head dim 192.  Then the
    SSD sweep of the same tests on the tensor-core SSD kernel
    (ssd_fwd_sm90.cu, whose registers, shared memory and spills are printed
    here), the RWKV6 sweep and RWKV6's strong-decay case on the tensor-core
@@ -26,12 +28,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    Each kernel is checked and timed at the shape its serve path gives it
    (granite-3-8b and zamba2-2.7b attention, zamba2's SSD, rwkv6-3b's WKV;
    flash also at internvl2's and musicgen's shapes, and the float32 flash
-   kernel at mixtral's, where phase 3's float32 MoE serving runs it),
-   beside its plain version, PyTorch's fused attention for flash, and its
-   bound; every kernel and PyTorch's attention both eagerly (CUDA events
+   kernel at mixtral's, where phase 3's float32 MoE serving runs it, also
+   against the plain version in float64), beside its plain version,
+   PyTorch's fused attention for flash, and its bound; every kernel and PyTorch's attention both eagerly (CUDA events
    over 20 calls) and by replaying a CUDA graph of 20 captured calls, which
    leaves out the host's cost of each call; the RWKV6 kernel with float32
-   and with the bfloat16 r, k, v the model feeds.  The SSD and RWKV6 kernels' bounds are
+   and with the bfloat16 r, k, v the model feeds.  The float32 flash, SSD and
+   RWKV6 kernels' bounds are
    at the TF32 tensor-core rate with three split-TF32 products per product,
    where the kernels do their products; the bound at the float32 rate
    outside the tensor cores is printed beside it.  At their serve shapes
@@ -44,11 +47,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    on the card): 8 requests, 512-token prompts, 32 generated tokens each.
    Every launch count is set to 0 before each run and must be exact after
    it (flash once per attention block, SSD once per Mamba2 layer, RWKV6
-   once per layer; every bf16 flash launch on the tensor-core kernel, every
-   float32 one on the CUDA-core kernel), the prompt forward and the
+   once per layer; every bf16 flash launch on the bf16 kernel, every
+   float32 one on the split-TF32 kernel), the prompt forward and the
    teacher-forced decode must agree (an MoE's prompt forward at its no-drop
-   capacity, as the launcher runs it; the experts each path chose are
-   counted), and every generated id must lie below the vocabulary size.
+   capacity, as the launcher runs it: the (token, layer) pairs the two
+   paths route differently are counted, and in float32 the forward takes
+   decode's experts at ties, a router-probability gap of at most
+   serve.ROUTING_TIE_GAP, at most serve.ROUTING_MAX_TIES of them, while a
+   flip beyond a tie fails), and every generated id must lie below the
+   vocabulary size.
 4. Profile each served family's prompt forward through the kernels and its
    serving loop (teacher-forced prefill and greedy decode) at full width
    with torch.profiler: device busy time, the device's idle share and the
@@ -88,7 +95,6 @@ and exits non-zero.
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import json
 import re
@@ -116,6 +122,12 @@ FLASH_ASYMMETRIC = [(1, 256, 2, 2, 32, 128, 32, None)]
 FLASH_RAGGED = [(2, 12, 4, 2, 64, 128, 128, None)]  # blk = S = 12, not a multiple of 8
 FLASH_HD80 = [(1, 128, 4, 4, 80, 64, 64, None), (2, 256, 8, 8, 80, 128, 128, None)]
 FLASH_HD192 = [(1, 256, 8, 2, 192, 128, 128, None), (1, 384, 4, 2, 192, 128, 128, 100)]  # bf16 only
+FLASH_SERVE_LIKE = [  # tests/test_torch_cuda.py's serve-like cases, in both dtypes
+    (2, 512, 8, 2, 128, 128, 128, None),  # granite's head dim, S = 512
+    (2, 512, 8, 8, 80, 128, 128, None),  # zamba2's head dim, S = 512
+    (1, 512, 4, 2, 128, 128, 128, 200),  # a window at S = 512
+    (1, 512, 4, 2, 128, 256, 64, None),  # blk_q above 128
+]
 GRANITE_ATTN = (8, 512, 32, 8, 128, 128, 128, None)  # prefill of the serve phase
 ZAMBA_ATTN = (8, 512, 32, 32, 80, 128, 128, None)  # zamba2's shared block
 MIXTRAL_ATTN = (8, 512, 32, 8, 128, 128, 128, 4096)  # mixtral's (and phi's) shape, window 4096 >= S
@@ -262,35 +274,52 @@ def flash_inputs(case, dtype, gen):
     return mk(H), mk(K), mk(K)
 
 
-def check_flash(case, dtype, gen, tol):
-    """Kernel vs plain version on one case; returns (max |err|, inputs)."""
+def check_flash(case, dtype, gen, tol, float64=False):
+    """Kernel vs plain version on one case, and that the dtype's own kernel
+    ran (bf16: flash_fwd_sm90.cu, float32: flash_fwd_tf32_sm90.cu); with
+    ``float64`` against the plain version in float64, the float32 plain
+    version's own error printed beside it.  Returns (max |err|, inputs)."""
     import torch
     from repro_torch.kernels.attention import ops, ref
 
     _, _, _, _, _, blk_q, blk_k, window = case
     q, k, v = flash_inputs(case, dtype, gen)
-    before = ops.tensor_core_launches
+    before = (ops.tensor_core_launches, ops.tf32_launches)
     out = ops.flash_attention(q, k, v, causal=True, window=window, blk_q=blk_q, blk_k=blk_k)
-    if ops.tensor_core_launches - before != int(dtype == torch.bfloat16):
-        raise RuntimeError(f"flash {case} {dtype}: launched the wrong kernel for its dtype")
-    want = ref.attention_reference(
-        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=True, window=window
-    ).transpose(1, 2)
+    launched = (ops.tensor_core_launches - before[0], ops.tf32_launches - before[1])
+    if launched != ((1, 0) if dtype == torch.bfloat16 else (0, 1)):
+        raise RuntimeError(f"flash {case} {dtype}: launched the wrong kernel for its dtype "
+                           f"(bf16, float32 kernel launches: {launched})")
+    plain = lambda *t: ref.attention_reference(
+        *(x.transpose(1, 2) for x in t), causal=True, window=window).transpose(1, 2)
     label = f"flash {case[:5]} blk {blk_q}/{blk_k} window {window} {str(dtype)[6:]}"
-    return check_close(label, out, want, tol), (q, k, v)
+    if not float64:
+        return check_close(label, out, plain(q, k, v), tol), (q, k, v)
+    want = plain(q.double(), k.double(), v.double())
+    err = check_close(label + " vs float64", out, want, tol)
+    print(f"    float32 plain version vs float64: max |err| "
+          f"{float((plain(q, k, v).double() - want).abs().max()):.3g}")
+    return err, (q, k, v)
 
 
-def flash_bound_ms(case, dtype_bytes: int):
+def flash_bound_ms(case, dtype_bytes: int, rate: str = "tensor cores"):
     """Least time for the function at a causal case whose window masks no
     key: bytes of q, k, v, o once over HBM rate vs 4*hd flops per unmasked
-    (q, k) pair over the peak of the inputs' type (bf16 on the tensor cores,
-    float32 outside them).  Returns (ms, "bytes" | "operations")."""
+    (q, k) pair over the peak where they run.  On the tensor cores (the
+    kernels line's ``bound_ms``) that is the bf16 peak for bf16 inputs and,
+    for float32 ones, three split-TF32 products (hi.hi + hi.lo + lo.hi) per
+    product over the TF32 peak; ``rate="float32"`` takes the float32 peak
+    outside the tensor cores (the float32 kernel's ``bound_f32_ms``).
+    Returns (ms, "bytes" | "operations")."""
     B, S, H, K, hd = case[:5]
     nbytes = dtype_bytes * B * S * hd * (2 * H + 2 * K)
     pairs = S * (S + 1) // 2
     flops = 4 * hd * B * H * pairs
-    peak = BF16_FLOPS if dtype_bytes == 2 else F32_FLOPS
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+    if rate == "float32":
+        t_ops = flops / F32_FLOPS
+    else:
+        t_ops = flops / BF16_FLOPS if dtype_bytes == 2 else 3 * flops / TF32_FLOPS
+    t_bytes = nbytes / HBM_BYTES_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -564,26 +593,31 @@ def phase2_kernels(torch, gen, build_logs: dict) -> dict:
     from repro_torch.kernels.ssd import ops as ssd_ops
 
     out = {}
-    print("phase 2: flash attention, bf16 tensor-core kernel (flash_fwd_sm90.cu): nvcc -Xptxas -v")
-    smem_bytes = flash_ops._kernel("flash_fwd_sm90").flash_fwd_sm90_smem_bytes
-    smem_bytes.argtypes, smem_bytes.restype = [ctypes.c_int], ctypes.c_int
-    summary = ptxas_summary(build_logs.get("flash_fwd_sm90", ""))
-    if not summary:
-        print("  (no compiler output: the library was built before this run)")
-    for fn, regs, spill_st, spill_ld, smem in summary:
-        hd = int(fn.rsplit("<", 1)[1][:-1])
-        print(f"  {fn}: {regs} registers at launch (setmaxnreg: 232 per consumer thread, 40 per "
-              f"producer thread), {spill_st} / {spill_ld} bytes spill stores / loads, "
-              f"{smem} B static + {smem_bytes(hd)} B dynamic shared memory")
-        if spill_st or spill_ld:
-            raise RuntimeError(f"{fn} spills registers")
-    for line in build_logs.get("flash_fwd_sm90", "").splitlines():
-        if "Performance Loss" in line:
-            print("  ptxas:", line.strip()[:160])
-    print("phase 2: flash attention kernels vs plain version (bf16: tensor-core kernel, "
-          "float32: CUDA-core kernel)")
+    for stem, dtype, regs_note in (
+            ("flash_fwd_sm90", "bf16", "232 per consumer thread, 40 per producer thread"),
+            ("flash_fwd_tf32_sm90", "float32 (split TF32)",
+             "224 per consumer thread, 56 per producer thread")):
+        print(f"phase 2: flash attention, {dtype} tensor-core kernel ({stem}.cu): nvcc -Xptxas -v")
+        smem_bytes = getattr(flash_ops._kernel(stem), f"{stem}_smem_bytes")
+        smem_bytes.argtypes, smem_bytes.restype = [ctypes.c_int], ctypes.c_int
+        summary = ptxas_summary(build_logs.get(stem, ""))
+        if not summary:
+            print("  (no compiler output: the library was built before this run)")
+        for fn, regs, spill_st, spill_ld, smem in summary:
+            hd = int(fn.rsplit("<", 1)[1][:-1])
+            print(f"  {fn}: {regs} registers at launch (setmaxnreg: {regs_note}), {spill_st} / "
+                  f"{spill_ld} bytes spill stores / loads, {smem} B static + {smem_bytes(hd)} B "
+                  "dynamic shared memory")
+            if spill_st or spill_ld:
+                raise RuntimeError(f"{fn} spills registers")
+        for line in build_logs.get(stem, "").splitlines():
+            if "Performance Loss" in line:
+                print("  ptxas:", line.strip()[:160])
+    print("phase 2: flash attention kernels vs plain version (bf16: flash_fwd_sm90.cu, "
+          "float32: flash_fwd_tf32_sm90.cu)")
     for dtype, tol in ((torch.float32, 2e-4), (torch.bfloat16, 2e-2)):
-        for case in FLASH_SWEEP + FLASH_WINDOWS + FLASH_ASYMMETRIC + FLASH_RAGGED + FLASH_HD80:
+        for case in (FLASH_SWEEP + FLASH_WINDOWS + FLASH_ASYMMETRIC + FLASH_RAGGED + FLASH_HD80
+                     + FLASH_SERVE_LIKE):
             check_flash(case, dtype, gen, tol)
     for case in FLASH_HD192:
         check_flash(case, torch.bfloat16, gen, 2e-2)
@@ -592,15 +626,17 @@ def phase2_kernels(torch, gen, build_logs: dict) -> dict:
         check_flash(case, torch.float32, gen, 2e-4)
     check_flash(MIXTRAL_ATTN, torch.bfloat16, gen, 2e-2)  # window 4096 >= S: masks no key
     # Timed at each serve path's shape; phase 3 serves the MoE configs in
-    # float32, so their prompt forwards run the CUDA-core kernel at mixtral's
-    # shape (phi's is the same without the window, which masks no key here).
+    # float32, so their prompt forwards run the split-TF32 kernel at
+    # mixtral's shape (phi's is the same without the window, which masks no
+    # key here), checked there against float64 as well.
     sdpa = torch.nn.functional.scaled_dot_product_attention
     for name, case, dtype, tol in (("flash_fwd", GRANITE_ATTN, torch.bfloat16, 2e-2),
                                    ("flash_fwd hd80", ZAMBA_ATTN, torch.bfloat16, 2e-2),
                                    ("flash_fwd gqa7 hd64", INTERNVL2_ATTN, torch.bfloat16, 2e-2),
                                    ("flash_fwd mha hd64", MUSICGEN_ATTN, torch.bfloat16, 2e-2),
                                    ("flash_fwd f32 moe", MIXTRAL_ATTN, torch.float32, 2e-4)):
-        err, (q, k, v) = check_flash(case, dtype, gen, tol)
+        float32 = dtype == torch.float32
+        err, (q, k, v) = check_flash(case, dtype, gen, tol, float64=float32)
         window = case[7]
         qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
         kernel = lambda: flash_ops.flash_attention(q, k, v, window=window)
@@ -615,6 +651,9 @@ def phase2_kernels(torch, gen, build_logs: dict) -> dict:
             library_ms_eager=cuda_ms(library),
         )
         out[name]["bound_ms"], out[name]["bound_by"] = flash_bound_ms(case, q.element_size())
+        if float32:
+            out[name]["bound_f32_ms"], out[name]["bound_f32_by"] = \
+                flash_bound_ms(case, 4, rate="float32")
         del q, k, v, qh, kh, vh
     out["flash_fwd"]["at_zamba2_hd80"] = out["flash_fwd hd80"]
     out["flash_fwd"]["at_internvl2_gqa7_hd64"] = out["flash_fwd gqa7 hd64"]
@@ -706,8 +745,8 @@ def phase2_kernels(torch, gen, build_logs: dict) -> dict:
                                ("flash_fwd hd80", "flash_fwd hd80", ZAMBA_ATTN[:5]),
                                ("flash_fwd GQA 7:1 hd64", "flash_fwd gqa7 hd64", INTERNVL2_ATTN[:5]),
                                ("flash_fwd MHA hd64", "flash_fwd mha hd64", MUSICGEN_ATTN[:5]),
-                               ("flash_fwd float32 (flash_fwd.cu), window 4096", "flash_fwd f32 moe",
-                                MIXTRAL_ATTN[:5]),
+                               ("flash_fwd float32 (flash_fwd_tf32_sm90.cu), window 4096",
+                                "flash_fwd f32 moe", MIXTRAL_ATTN[:5]),
                                ("ssd_fwd", "ssd_fwd", ZAMBA_SSD),
                                ("rwkv6_fwd bf16 r, k, v", "rwkv6_fwd", RWKV6_SERVE)):
         m = out[name]
@@ -758,53 +797,17 @@ def depth_label(cfg) -> str:
     return label if cfg.param_dtype == full.param_dtype else f"{label} {cfg.param_dtype}"
 
 
-class RoutingRecorder:
-    """Wraps ``repro_torch.models.moe.top_k`` during one serve run and keeps
-    each layer's top-k experts in the prompt forward (its calls with S > 1)
-    and in each teacher-forced decode step over the prompt (S = 1), to count
-    the (token, layer) pairs the two paths route to different experts.  The
-    wrapper only records: the routing is the package's."""
-
-    def __init__(self, moe_module, n_layers: int, prompt_len: int):
-        self.moe, self.real = moe_module, moe_module.top_k
-        self.L, self.S = n_layers, prompt_len
-        self.fwd, self.gap, self.dec = [], [], []
-
-    def __enter__(self):
-        self.moe.top_k = self
-        return self
-
-    def __exit__(self, *exc):
-        self.moe.top_k = self.real
-
-    def __call__(self, probs, k):
-        w, ids = self.real(probs, k)
-        if probs.shape[1] > 1 and len(self.fwd) < self.L:
-            self.fwd.append(ids.sort(-1).values)
-            top = probs.sort(-1, descending=True).values
-            self.gap.append(top[..., k - 1] - top[..., k])
-        elif probs.shape[1] == 1 and len(self.dec) < self.L * self.S:
-            self.dec.append(ids.sort(-1).values)
-        return w, ids
-
-    def flips(self) -> dict:
-        """Per layer, the (token, request) pairs whose expert set differs
-        between the prompt forward and decode, at every prompt position and
-        at the last; and the largest probability gap (k-th minus (k+1)-th,
-        in the forward) among the flipped pairs."""
-        import torch
-
-        fwd = torch.stack(self.fwd)  # (L, B, S, k)
-        dec = torch.stack(self.dec).view(self.S, self.L, *fwd.shape[1:2], -1).permute(1, 2, 0, 3)
-        differs = (fwd != dec).any(-1)  # (L, B, S)
-        gap = torch.stack(self.gap)
-        return {
-            "all_positions": differs.sum(dim=(1, 2)).tolist(),
-            "last_position": differs[:, :, -1].sum(dim=1).tolist(),
-            "pairs": differs[0].numel(),
-            "max_gap_at_flip": float(gap[differs].max()) if bool(differs.any()) else None,
-            "median_gap": float(gap.median()),
-        }
+def flash_launches_by_kernel(flash_ops, n: int, dtype: str, label: str) -> dict:
+    """Raise unless all ``n`` flash launches of a run went to the kernel of
+    its activation dtype (bf16: flash_fwd_sm90.cu, float32:
+    flash_fwd_tf32_sm90.cu); returns them by kernel."""
+    got = {"flash_fwd_tensor_core": flash_ops.tensor_core_launches,
+           "flash_fwd_tf32": flash_ops.tf32_launches}
+    want = {"flash_fwd_tensor_core": n if dtype == "bfloat16" else 0,
+            "flash_fwd_tf32": n if dtype == "float32" else 0}
+    if got != want:
+        raise RuntimeError(f"{label}: flash launches by kernel {got}, expected {want} for {dtype}")
+    return got
 
 
 def phase3_serve(torch, cfg, counters: dict) -> dict:
@@ -813,7 +816,6 @@ def phase3_serve(torch, cfg, counters: dict) -> dict:
     a registered config; a depth-cut one needs it); returns its launch
     counts."""
     from repro_torch.launch import serve
-    from repro_torch.models import moe
 
     label = depth_label(cfg)
     print(f"phase 3: serve {label} at full width: {cfg.n_layers} layers, d_model "
@@ -826,26 +828,18 @@ def phase3_serve(torch, cfg, counters: dict) -> dict:
     t0 = time.perf_counter()
     for mod in counters.values():
         mod.launches = 0
-    counters["flash_fwd"].tensor_core_launches = 0
+    counters["flash_fwd"].tensor_core_launches = counters["flash_fwd"].tf32_launches = 0
     args = serve.build_parser().parse_args(serve_args(cfg.name))
-    recorder = RoutingRecorder(moe, cfg.n_layers, args.prompt_len) if cfg.moe else None
-    try:
-        with recorder or contextlib.nullcontext():
-            result = serve.serve_config(cfg, args, torch.device("cuda"))
-    finally:  # also when the prefill/decode check fails
-        if recorder and len(recorder.dec) == recorder.L * recorder.S:
-            print(f"  {label}: routing, prompt forward (no-drop capacity) against teacher-forced "
-                  f"decode: {recorder.flips()}", flush=True)
+    result = serve.serve_config(cfg, args, torch.device("cuda"))
+    if cfg.moe:
+        print(f"  {label}: routing, prompt forward (no-drop capacity) against teacher-forced "
+              f"decode: {result['routing']}", flush=True)
     launches = {name: mod.launches for name, mod in counters.items()}
     want = expected_launches(cfg)
     if launches != want:
         raise RuntimeError(f"{label}: kernel launches {launches} in the serve run, expected {want}")
-    want_tc = launches["flash_fwd"] if cfg.activation_dtype == "bfloat16" else 0
-    if counters["flash_fwd"].tensor_core_launches != want_tc:
-        raise RuntimeError(f"{label}: {counters['flash_fwd'].tensor_core_launches} of "
-                           f"{launches['flash_fwd']} flash launches on the bf16 tensor-core kernel, "
-                           f"expected {want_tc} for {cfg.activation_dtype}")
-    launches["flash_fwd_tensor_core"] = want_tc
+    launches.update(flash_launches_by_kernel(counters["flash_fwd"], launches["flash_fwd"],
+                                             cfg.activation_dtype, label))
     gen_ids = result["tokens"]
     if gen_ids.shape != (8, 32) or int(gen_ids.max()) >= cfg.vocab_size or int(gen_ids.min()) < 0:
         raise RuntimeError(f"{label}: generated ids out of range: shape {gen_ids.shape}")
@@ -1113,15 +1107,14 @@ def phase5c_eval(torch, cfg, counters: dict) -> dict:
     batch = pipeline_batch(torch, cfg, seed=1)
     for mod in counters.values():
         mod.launches = 0
-    counters["flash_fwd"].tensor_core_launches = 0
+    counters["flash_fwd"].tensor_core_launches = counters["flash_fwd"].tf32_launches = 0
     fast = make_eval_step(build_model(cfg, impl="kernel"))(params, batch)
     launches = {name: mod.launches for name, mod in counters.items()}
     want = expected_launches(cfg)
     if launches != want:
         raise RuntimeError(f"{cfg.name} eval: kernel launches {launches}, expected {want}")
-    if counters["flash_fwd"].tensor_core_launches != launches["flash_fwd"]:
-        raise RuntimeError(f"{cfg.name} eval: flash launches off the bf16 tensor-core kernel")
-    launches["flash_fwd_tensor_core"] = launches["flash_fwd"]
+    launches.update(flash_launches_by_kernel(counters["flash_fwd"], launches["flash_fwd"],
+                                             cfg.activation_dtype, f"{cfg.name} eval"))
     plain = make_eval_step(build_model(cfg))(params, batch)
     err = check_close(f"phase 5c: {cfg.name} ({cfg.n_layers} layers) eval loss, kernels vs torch "
                       f"paths, {TRAIN_BATCH} x {TRAIN_SEQ} tokens, launches {launches}",
@@ -1310,8 +1303,8 @@ def main() -> int:
                       "src/repro/kernels/rwkv6/chunked.py:34"),
     }
     tensor_core = sum(c["flash_fwd_tensor_core"] for c in by_path.values())
-    numbers["flash_fwd"]["at_moe_serve_f32"]["launches"] = \
-        sum(c["flash_fwd"] for c in by_path.values()) - tensor_core
+    tf32 = sum(c["flash_fwd_tf32"] for c in by_path.values())
+    numbers["flash_fwd"]["at_moe_serve_f32"]["launches"] = tf32
     kernels = []
     for name, (source, replaces) in sources.items():
         m = numbers[name]
@@ -1329,8 +1322,8 @@ def main() -> int:
             "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"],
             "library_ms": m["library_ms"],
-            **({"tensor_core_launches": tensor_core,
-                "float32_source": "src/repro_torch/kernels/attention/csrc/flash_fwd.cu"}
+            **({"tensor_core_launches": tensor_core, "tf32_launches": tf32,
+                "float32_source": "src/repro_torch/kernels/attention/csrc/flash_fwd_tf32_sm90.cu"}
                if name == "flash_fwd" else {}),
             **{key: m[key] for key in ("ms_eager", "library_ms_eager", "at_zamba2_hd80",
                                        "at_internvl2_gqa7_hd64", "at_musicgen_mha_hd64",

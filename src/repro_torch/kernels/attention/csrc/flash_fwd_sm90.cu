@@ -3,8 +3,9 @@
 // Replaces the Pallas TPU kernel `_flash_kernel` in
 // src/repro/kernels/attention/flash.py (launched by `flash_attention_hmajor`,
 // wrapped by src/repro/kernels/attention/ops.py::flash_attention) for bf16
-// inputs; float32 inputs keep the CUDA-core kernel in flash_fwd.cu, since
-// bf16 or TF32 products cannot hold the float32 tolerance.  It computes what
+// inputs; float32 inputs go to flash_fwd_tf32_sm90.cu, whose split-TF32
+// products hold the float32 tolerance that bf16 or one TF32 product cannot.
+// It computes what
 // the TPU kernel computes: online softmax with a float32 running max, sum and
 // accumulator; scores scaled by 1/sqrt(hd) in float32 after the product;
 // masked scores set to -1e30, never -inf (a row that is fully masked inside

@@ -2,15 +2,17 @@
 ``repro.kernels.attention.ops.flash_attention``).
 
 Takes the model's ``(B, S, H, hd)`` layout.  A CUDA tensor goes to a
-hand-written kernel, built at first use and chosen by dtype: bfloat16 (the
-serve path) to the tensor-core kernel ``csrc/flash_fwd_sm90.cu`` (TMA and
-``wgmma``), float32 to the CUDA-core kernel ``csrc/flash_fwd.cu``, whose
-float32 products hold the float32 tolerance that bf16 or TF32 products
-cannot.  A CPU tensor goes to the plain PyTorch version in ``ref.py``.
-There is no fallback from one to another: on the card the chosen kernel
-runs or the call raises.  ``launches`` counts kernel launches of either
-kernel, ``tensor_core_launches`` those of the bf16 kernel (plain-version
-calls are not counted).
+hand-written tensor-core kernel (TMA and ``wgmma``), built at first use and
+chosen by dtype: bfloat16 (the serve path) to ``csrc/flash_fwd_sm90.cu``,
+float32 to ``csrc/flash_fwd_tf32_sm90.cu``, whose products are split TF32
+(hi.hi + hi.lo + lo.hi, three TF32 products per product), which holds the
+float32 tolerance that one TF32 product cannot
+(``ref.attention_split_tf32_reference`` is its arithmetic on the CPU).  A
+CPU tensor goes to the plain PyTorch version in ``ref.py``.  There is no
+fallback from one to another: on the card the chosen kernel runs or the
+call raises.  ``launches`` counts launches of either kernel,
+``tensor_core_launches`` those of the bf16 kernel and ``tf32_launches``
+those of the float32 one (plain-version calls are not counted).
 """
 
 from __future__ import annotations
@@ -27,24 +29,23 @@ from repro_torch.kernels import refuse_autograd
 from .ref import attention_reference
 
 # Kernel launches since the counters were last reset (chip_smoke.py sets
-# both to 0 before it drives the main path).
+# each to 0 before it drives the main path).
 launches = 0
 tensor_core_launches = 0
+tf32_launches = 0
 
-# What each kernel takes.  The float32 kernel also needs blk_q <= 128; the
-# bf16 kernel tiles on its own (128 q rows, 128 or 64 keys) whatever blk_q
-# and blk_k are, since the result does not depend on the block sizes.
+# The head dims each kernel takes.  Both tile on their own (bf16: 128 q
+# rows, 128 or 64 keys; float32: 128 q rows, 32 keys) whatever blk_q and
+# blk_k are, since the result does not depend on the block sizes.
 HEAD_DIMS = {
     torch.bfloat16: (16, 32, 64, 80, 128, 192),
     torch.float32: (16, 32, 64, 80, 128),
 }
-MAX_BLK_Q_F32 = 128
+KERNELS = {torch.bfloat16: "flash_fwd_sm90", torch.float32: "flash_fwd_tf32_sm90"}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = {  # q, k, v, o; B, S, H, K, hd, [blk_q, blk_k,] causal, window; scale; stream
-    "flash_fwd": [_P] * 4 + [_I] * 9 + [_F, _P],
-    "flash_fwd_sm90": [_P] * 4 + [_I] * 7 + [_F, _P],
-}
+# q, k, v, o; B, S, H, K, hd, causal, window; scale; stream
+_ARGTYPES = [_P] * 4 + [_I] * 7 + [_F, _P]
 
 
 @lru_cache(maxsize=None)
@@ -53,7 +54,7 @@ def _kernel(stem: str):
 
     lib = _build.library(stem)
     fn = getattr(lib, stem)
-    fn.argtypes = _ARGTYPES[stem]
+    fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
     err = getattr(lib, f"{stem}_error_string")
     err.argtypes = [ctypes.c_int]
@@ -92,7 +93,7 @@ def flash_attention(
     """Causal / sliding-window GQA attention; returns ``(B, S, H, hd)`` in
     q's dtype.  ``blk = min(blk, S)`` and ``S % blk == 0``, as in the JAX
     wrapper."""
-    global launches, tensor_core_launches
+    global launches, tensor_core_launches, tf32_launches
     S = q.shape[1]
     blk_q, blk_k = min(blk_q, S), min(blk_k, S)
     _check(q, k, v, blk_q, blk_k, window)
@@ -108,22 +109,18 @@ def flash_attention(
     B, S, H, hd = q.shape
     if hd not in HEAD_DIMS[q.dtype]:
         raise NotImplementedError(f"head dim {hd} not in {HEAD_DIMS[q.dtype]} for {q.dtype}")
-    tensor_core = q.dtype == torch.bfloat16
-    if not tensor_core and blk_q > MAX_BLK_Q_F32:
-        raise NotImplementedError(f"blk_q {blk_q} > {MAX_BLK_Q_F32} for float32")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
     out = torch.empty_like(q)
-    stem = "flash_fwd_sm90" if tensor_core else "flash_fwd"
+    stem = KERNELS[q.dtype]
     lib = _kernel(stem)
-    blocks = () if tensor_core else (blk_q, blk_k)
     with torch.cuda.device(q.device):
         err = getattr(lib, stem)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, S, H, k.shape[2], hd, *blocks, int(causal),
+            B, S, H, k.shape[2], hd, int(causal),
             -1 if window is None else int(window), 1.0 / math.sqrt(hd),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
@@ -131,5 +128,6 @@ def flash_attention(
         message = getattr(lib, f"{stem}_error_string")(err).decode()
         raise RuntimeError(f"{stem} launch failed: {message} (error {err})")
     launches += 1
-    tensor_core_launches += int(tensor_core)
+    tensor_core_launches += int(q.dtype == torch.bfloat16)
+    tf32_launches += int(q.dtype == torch.float32)
     return out

@@ -20,6 +20,9 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels.tf32 import product as _product
+from repro_torch.kernels.tf32 import split as _split
+
 
 def rwkv6_reference(
     r: torch.Tensor,  # (B, H, S, P)
@@ -47,35 +50,6 @@ def rwkv6_reference(
 LOG2E = 1.4426950408889634
 
 
-def _tf32_hi(x: torch.Tensor) -> torch.Tensor:
-    """x with its low 13 mantissa bits cleared."""
-    return (x.view(torch.int32) & ~0x1FFF).view(torch.float32)
-
-
-def _tf32_rna(x: torch.Tensor) -> torch.Tensor:
-    """x rounded to TF32, half away from zero (``cvt.rna.tf32.f32``)."""
-    return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
-
-
-def _split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    hi = _tf32_hi(x)
-    return hi, _tf32_rna(x - hi)
-
-
-def _product(a: torch.Tensor, b: torch.Tensor, tf32: Optional[str]) -> torch.Tensor:
-    """a @ b in float32 as the kernel's wgmma forms it: ``None`` exact
-    operands, ``"one"`` one TF32 product (hi.hi), ``"split"`` three
-    (hi.hi + hi.lo + lo.hi)."""
-    if tf32 is None:
-        return a @ b
-    (ah, al), (bh, bl) = _split(a), _split(b)
-    if tf32 == "one":
-        return ah @ bh
-    if tf32 == "split":
-        return ah @ bh + ah @ bl + al @ bh
-    raise ValueError(f"tf32 must be None, 'one' or 'split', not {tf32!r}")
-
-
 def rwkv6_subchunk_reference(
     r: torch.Tensor,  # (B, H, S, P)
     k: torch.Tensor,
@@ -96,7 +70,7 @@ def rwkv6_subchunk_reference(
     ``sub`` x ``sub`` blocks in the direct form with the u bonus; the
     inter-chunk operand rho X_{i,0}; the state update with kt X_{NSUB,j+1}
     (k 2^{C_L - C} in the last sub-chunk).  ``tf32`` rounds the operands of
-    every product as the kernel's wgmma does (see ``_product``).  Returns (out
+    every product as the kernel's wgmma does (see ``kernels/tf32.py``).  Returns (out
     (B, H, S, P), final state (B, H, P, P)), float32."""
     B, H, S, P = r.shape
     if chunk % sub:

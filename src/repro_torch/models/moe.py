@@ -18,12 +18,17 @@ The JAX layer reaches no Pallas kernel (it is einsums, a sort and
 scatters), so the port is PyTorch ops with ``torch.matmul`` for the expert
 products.  Dispatch and combine index flat (rows, d) views, so no index
 tensor of the activations' size is built.
+
+``routing(hook)`` lets a caller see and replace each layer's top-k inside
+its ``with`` block (the serve check uses it: ``launch/serve.py``).
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
-from typing import Dict, Tuple
+from typing import Callable, Dict, Iterator, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -85,6 +90,37 @@ def top_k(probs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return values[..., :k], ids[..., :k]
 
 
+RoutingHook = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
+
+# The hook of the enclosing ``routing`` block in this thread or task, if any.
+_routing_hook: contextvars.ContextVar = contextvars.ContextVar("moe_routing_hook", default=None)
+
+
+@contextlib.contextmanager
+def routing(hook: RoutingHook) -> Iterator[RoutingHook]:
+    """Inside the block, in this thread or task only, every ``apply_moe``
+    calls ``hook(probs, top_w, top_ids)`` with its router probabilities
+    (B, S, E) and its own top-k (B, S, k), and routes by the (weights, ids)
+    it returns.  One hook at a time: a nested ``routing`` raises.  For
+    inference: a remat recompute in the backward runs on autograd's threads,
+    which do not see the hook."""
+    if _routing_hook.get() is not None:
+        raise RuntimeError("an MoE routing hook is already set")
+    token = _routing_hook.set(hook)
+    try:
+        yield hook
+    finally:
+        _routing_hook.reset(token)
+
+
+def route(probs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The top-k that ``apply_moe`` routes by: its own, or what the hook of
+    an enclosing ``routing`` block makes of it."""
+    top_w, top_ids = top_k(probs, k)
+    hook = _routing_hook.get()
+    return (top_w, top_ids) if hook is None else hook(probs, top_w, top_ids)
+
+
 def apply_moe(p: Params, x: torch.Tensor, cfg: ArchConfig) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x: (B, S, d) -> (B, S, d), aux metrics (load-balance loss, drop rate)."""
     moe = cfg.moe
@@ -95,7 +131,7 @@ def apply_moe(p: Params, x: torch.Tensor, cfg: ArchConfig) -> Tuple[torch.Tensor
 
     logits = x.float() @ p["router"]  # (B, S, E)
     probs = torch.softmax(logits, dim=-1)
-    top_w, top_ids = top_k(probs, k)  # (B, S, k)
+    top_w, top_ids = route(probs, k)  # (B, S, k)
     top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)  # Mixtral renorm
 
     # Switch aux loss: E * sum_e (fraction of tokens to e) * (mean prob of e)

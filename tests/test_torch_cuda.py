@@ -36,11 +36,13 @@ CASES = [  # (B, S, H, K, hd, blk_q, blk_k, window), the JAX kernel sweep
     (1, 128, 4, 4, 80, 64, 64, None),  # head dim 80 (zamba2's shared block)
     (2, 256, 8, 8, 80, 128, 128, None),
 ]
-BF16_CASES = [  # the tensor-core kernel only: bf16 takes what float32 does not
+BF16_CASES = [  # the bf16 kernel only: bf16 takes what float32 does not
     (1, 256, 8, 2, 192, 128, 128, None),  # head dim 192 (nemotron-4-340b)
     (1, 384, 4, 2, 192, 128, 128, 100),  # head dim 192 with a window, 64-key tiles
-    (2, 512, 8, 2, 128, 128, 128, None),  # serve-like: granite's head dim, S = 512
-    (2, 512, 8, 8, 80, 128, 128, None),  # serve-like: zamba2's head dim, S = 512
+]
+SERVE_LIKE_CASES = [  # both kernels
+    (2, 512, 8, 2, 128, 128, 128, None),  # granite's head dim, S = 512
+    (2, 512, 8, 8, 80, 128, 128, None),  # zamba2's head dim, S = 512
     (1, 512, 4, 2, 128, 128, 128, 200),  # a window at S = 512
     (1, 512, 4, 2, 128, 256, 64, None),  # blk_q above 128
 ]
@@ -98,14 +100,16 @@ def _inputs(case, dtype, seed=0):
 
 
 def _check_flash(case, dtype):
-    """One launch of the kernel that the dtype selects (bf16: the tensor-core
-    kernel), held against the plain version."""
+    """One launch of the kernel that the dtype selects (bf16:
+    flash_fwd_sm90.cu, float32: the split-TF32 flash_fwd_tf32_sm90.cu), held
+    against the plain version."""
     q, k, v = _inputs(case, dtype)
     _, _, _, _, _, blk_q, blk_k, window = case
-    before, before_tc = ops.launches, ops.tensor_core_launches
+    before = (ops.launches, ops.tensor_core_launches, ops.tf32_launches)
     got = ops.flash_attention(q, k, v, window=window, blk_q=blk_q, blk_k=blk_k)
-    assert ops.launches == before + 1
-    assert ops.tensor_core_launches == before_tc + (dtype == torch.bfloat16)
+    bf16 = dtype == torch.bfloat16
+    assert (ops.launches, ops.tensor_core_launches, ops.tf32_launches) == (
+        before[0] + 1, before[1] + bf16, before[2] + (not bf16))
     assert got.device.type == "cuda" and got.dtype == dtype and got.shape == q.shape
     want = ref.attention_reference(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), window=window
@@ -137,18 +141,37 @@ def test_flash_tensor_core_kernel_matches_plain_version(cuda, case):
     _check_flash(case, torch.bfloat16)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", SERVE_LIKE_CASES)
+def test_flash_kernel_serve_like_cases_match_plain_version(cuda, case, dtype):
+    _check_flash(case, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [None, 96])
+def test_flash_kernel_without_causal_mask_matches_plain_version(cuda, window, dtype):
+    """causal=False: every key live (or the window's band on one side), S
+    not a multiple of either kernel's tiles."""
+    q, k, v = _inputs((2, 200, 8, 2, 64), dtype)
+    got = ops.flash_attention(q, k, v, causal=False, window=window, blk_q=200, blk_k=200)
+    want = ref.attention_reference(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=False, window=window
+    ).transpose(1, 2)
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype], rtol=TOL[dtype])
+
+
 def test_flash_kernel_routes_by_dtype(cuda):
-    """float32 keeps the CUDA-core kernel's limits (head dims up to 128,
-    blk_q up to 128); bf16 takes both."""
+    """float32 takes head dims up to 128 (hd 192 raises) and tiles on its
+    own, so blk_q 256 runs on the split-TF32 kernel; bf16 takes both."""
     q, k, v = _inputs((1, 256, 4, 2, 192), torch.float32)
     with pytest.raises(NotImplementedError):
         ops.flash_attention(q, k, v)
     q, k, v = _inputs((1, 256, 4, 2, 64), torch.float32)
-    with pytest.raises(NotImplementedError):
-        ops.flash_attention(q, k, v, blk_q=256)
-    before = ops.tensor_core_launches
+    before = (ops.tensor_core_launches, ops.tf32_launches)
+    ops.flash_attention(q, k, v, blk_q=256)
+    assert (ops.tensor_core_launches, ops.tf32_launches) == (before[0], before[1] + 1)
     ops.flash_attention(*(t.to(torch.bfloat16) for t in (q, k, v)), blk_q=256)
-    assert ops.tensor_core_launches == before + 1
+    assert (ops.tensor_core_launches, ops.tf32_launches) == (before[0] + 1, before[1] + 1)
 
 
 def test_flash_kernel_rejects_what_it_does_not_take(cuda):
@@ -238,8 +261,8 @@ def test_scan_kernels_reject_what_they_do_not_take(cuda):
 @pytest.mark.parametrize("name", ["granite-3-8b", "qwen1.5-110b", "zamba2-2.7b", "rwkv6-3b"])
 def test_kernel_prefill_matches_torch_path(cuda, name):
     """The model's forward through the kernels against its plain paths, in
-    float32 on the card: flash once per attention block, SSD once per
-    Mamba2 layer, RWKV6 once per layer."""
+    float32 on the card: flash once per attention block (on the split-TF32
+    kernel), SSD once per Mamba2 layer, RWKV6 once per layer."""
     cfg = dataclasses.replace(
         get_arch(name).reduced(), param_dtype="float32", activation_dtype="float32"
     )
@@ -248,9 +271,11 @@ def test_kernel_prefill_matches_torch_path(cuda, name):
                            generator=torch.Generator(device="cuda").manual_seed(1))
     counters = (ops, ssd_ops, rwkv6_ops)
     before = [m.launches for m in counters]
+    before_tf32 = ops.tf32_launches
     with torch.inference_mode():
         fast, _ = build_model(cfg, impl="kernel").forward(params, {"tokens": tokens})
         plain, _ = build_model(cfg).forward(params, {"tokens": tokens})
+    assert ops.tf32_launches - before_tf32 == ops.launches - before[0]
     if cfg.family == "hybrid":
         want = [cfg.n_layers // cfg.shared_attn_every, cfg.n_layers, 0]
     elif cfg.rwkv is not None:

@@ -16,6 +16,7 @@ import numpy as np
 from repro.kernels.rwkv6.ops import rwkv6_mix as jax_rwkv6_mix
 from repro.models import rwkv as jr
 from repro_torch.configs import get_arch
+from repro_torch.kernels.tf32 import split, tf32_rna
 from repro_torch.kernels.rwkv6 import ops, ref
 from repro_torch.models import rwkv as tr
 from torch_parity import BF16_TOL, F32_TOL, assert_close, rand
@@ -162,11 +163,11 @@ def test_tf32_split_parts():
     """hi clears the low 13 mantissa bits; lo = tf32(x - hi) rounds half
     away from zero; hi + lo is x to about 2^-22 relative."""
     x = torch.from_numpy(rand(np.random.default_rng(11), (4096,)))
-    hi, lo = ref._split(x)
+    hi, lo = split(x)
     assert ((hi.view(torch.int32) & 0x1FFF) == 0).all()
     assert ((lo.view(torch.int32) & 0x1FFF) == 0).all()
     assert ((hi + lo - x).abs() <= 2.0**-21 * x.abs()).all()
-    assert ref._tf32_rna(torch.tensor([1.0 + 2.0**-11])).item() == 1.0 + 2.0**-10  # a tie, away
+    assert tf32_rna(torch.tensor([1.0 + 2.0**-11])).item() == 1.0 + 2.0**-10  # a tie, away
 
 
 @pytest.mark.parametrize("P,dtype,P_kernel", [(16, torch.float32, 16), (18, torch.float32, 20),

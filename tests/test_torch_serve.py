@@ -98,8 +98,14 @@ def test_serve_moe_on_cpu(name, capsys):
     assert result["tokens"].shape == (2, 4) and result["tokens"].max() < tcfg.vocab_size
     assert result["prefill_decode_tol"] == serve.PREFILL_DECODE_TOL["float32"]
     assert result["prefill_decode_max_abs_diff"] <= result["prefill_decode_tol"]
+    routing = result["routing"]
+    assert routing["beyond_tie"] == 0 and routing["ties"] <= serve.ROUTING_MAX_TIES
+    assert len(routing["flips_by_layer"]) == tcfg.n_layers
+    assert routing["pairs_per_layer"] == 2 * 12
     factor = tcfg.moe.num_experts // tcfg.moe.top_k
-    assert f"capacity factor {factor} (no drops; configured 1.25)" in capsys.readouterr().out
+    out = capsys.readouterr().out
+    assert f"capacity factor {factor} (no drops; configured 1.25)" in out
+    assert f"routing against decode's: {routing}" in out
 
 
 def test_serve_check_capacity_is_no_drop_and_decode_never_drops():
@@ -115,3 +121,83 @@ def test_serve_check_capacity_is_no_drop_and_decode_never_drops():
         assert expert_capacity(cfg, 1) >= cfg.moe.top_k
     granite = get_arch("granite-3-8b")
     assert serve.no_drop_config(granite) is granite
+
+
+def _route(probs, k=2):
+    from repro_torch.models import moe
+
+    return moe.route(probs, k)
+
+
+def _decode_then_forward(tie_gap):
+    """One MoE layer's routing, recorded over three decode steps (experts
+    (0, 1), (0, 2), (0, 3)), then a prompt forward over the same three
+    tokens: the same experts; (0, 1) ahead of decode's (0, 2) by half of
+    ``tie_gap``; (0, 2) against decode's (0, 3) by 0.1, a routing fault."""
+    routing = serve.DecodeRouting()
+    with routing.recording():
+        for row in [[0.5, 0.3, 0.2, 0.0], [0.5, 0.2, 0.3, 0.0], [0.5, 0.0, 0.2, 0.3]]:
+            _route(torch.tensor([[row]]))
+    forward = torch.tensor([[
+        [0.5, 0.3, 0.2, 0.0],
+        [0.5, 0.25 + serve.ROUTING_TIE_GAP / 4, 0.25 - serve.ROUTING_TIE_GAP / 4, 0.0],
+        [0.5, 0.0, 0.3, 0.2],
+    ]])
+    with routing.forward(tie_gap):
+        w, ids = _route(forward)
+    return routing, forward, w, ids
+
+
+def test_decode_routing_takes_decode_experts_only_at_ties():
+    """With a tie gap the prompt forward keeps its own experts where they
+    match decode's, takes decode's where the two differ by no more than
+    ROUTING_TIE_GAP, and keeps its own where they differ by more, which
+    fails the check; without one (bf16) it keeps its own everywhere."""
+    routing, forward, w, ids = _decode_then_forward(serve.ROUTING_TIE_GAP)
+    assert ids.tolist() == [[[0, 1], [0, 2], [0, 2]]]
+    assert torch.equal(w, forward.gather(-1, ids))
+    summary = routing.summary()
+    tie = float(forward[0, 1, 1] - forward[0, 1, 2])
+    assert 0 < tie <= serve.ROUTING_TIE_GAP
+    assert summary == {
+        "flips_by_layer": [2], "last_position_flips_by_layer": [1], "pairs_per_layer": 3,
+        "max_gap": pytest.approx(0.1), "min_gap": pytest.approx(tie), "ties": 1,
+        "max_tie_gap": pytest.approx(tie), "beyond_tie": 1,
+    }
+    assert "1 (token, layer) pairs routed differently beyond a tie" in serve.routing_fault(summary)
+
+    routing, forward, w, ids = _decode_then_forward(None)
+    assert ids.tolist() == [[[0, 1], [0, 1], [0, 2]]]
+    assert "ties" not in routing.summary() and routing.summary()["flips_by_layer"] == [2]
+
+
+def test_routing_fault_counts_ties_against_their_limit():
+    summary = {"beyond_tie": 0, "ties": serve.ROUTING_MAX_TIES, "max_gap": 0.0}
+    assert serve.routing_fault(summary) is None
+    summary["ties"] += 1
+    assert serve.routing_fault(summary) == (
+        f"{serve.ROUTING_MAX_TIES + 1} routing ties, more than {serve.ROUTING_MAX_TIES}")
+
+
+def test_decode_routing_leaves_the_router_as_it_was():
+    """The hook holds inside its block only, one at a time, and only in the
+    thread that set it."""
+    import threading
+
+    from repro_torch.models import moe
+
+    probs = torch.tensor([[[0.1, 0.6, 0.3]]])
+    routing = serve.DecodeRouting()
+    with routing.recording():
+        _route(probs)
+        with pytest.raises(RuntimeError, match="already set"):
+            with routing.forward():
+                pass
+        seen = []
+        thread = threading.Thread(target=lambda: seen.append(_route(probs)))
+        thread.start()
+        thread.join()
+    assert len(routing.decode) == 1  # not the other thread's call
+    _route(probs)
+    assert len(routing.decode) == 1
+    assert [t.tolist() for t in seen[0]] == [t.tolist() for t in moe.top_k(probs, 2)]

@@ -7,11 +7,12 @@ on one CUDA card.
 For mixtral-8x7b and phi3.5-moe-42b-a6.6b at full width with ``--layers`` of
 their 32 layers in bf16 (the depth ``chip_smoke.py`` phase 4 profiles), runs
 the serve launcher's prefill/decode check without its gate on 8 x 512-token
-prompts: the prompt forward through the kernels at the no-drop capacity
-against the teacher-forced decode.  Prints, per layer, the (token, request)
-pairs whose top-k experts differ between the two paths (at every prompt
-position and at the last), the probability gaps at the flips, and the
-last-logit difference beside the check's tolerance.  This is the
+prompts: the teacher-forced decode, then the prompt forward through the
+kernels at the no-drop capacity (``serve.prompt_forward``; in bf16 it keeps
+its own experts).  Prints ``serve.DecodeRouting``'s summary: per layer, the
+(token, request) pairs whose top-k experts differ between the two paths (at
+every prompt position and at the last), the router-probability gaps at the
+flips, and the last-logit difference beside the check's tolerance.  This is the
 measurement that keeps ``chip_smoke.py`` phase 3's MoE serving in float32.
 """
 
@@ -26,26 +27,25 @@ REPO = Path(__file__).resolve().parents[1]
 
 
 def probe(torch, cfg) -> None:
-    from chip_smoke import RoutingRecorder, depth_label
+    from chip_smoke import depth_label
     from repro_torch.launch import serve
-    from repro_torch.models import build_model, moe
-    from repro_torch.train import make_prefill_step
+    from repro_torch.models import build_model
 
     torch.cuda.empty_cache()
     model = build_model(cfg)
     params = model.init(1, device="cuda")
     prompts = torch.randint(0, cfg.vocab_size, (8, 512), device="cuda",
                             generator=torch.Generator(device="cuda").manual_seed(2))
-    with RoutingRecorder(moe, cfg.n_layers, 512) as recorder, torch.inference_mode():
-        last = make_prefill_step(build_model(serve.no_drop_config(cfg), impl="kernel"))(
-            params, {"tokens": prompts})
+    routing = serve.DecodeRouting()
+    with torch.inference_mode():
         cache = model.init_cache(8, 512, device="cuda")
-        logits, cache = serve.prefill_by_decode(model, params, cache, prompts)
-    diff = float((last.float() - logits[:, -1].float()).abs().max())
-    tol = serve.prefill_decode_tolerance(cfg.activation_dtype, logits[:, -1])
+        with routing.recording():
+            logits, cache = serve.prefill_by_decode(model, params, cache, prompts)
+        last = serve.prompt_forward(cfg, params, prompts, routing)
+        check = serve.check_prefill_decode(cfg, last, logits[:, -1], routing)
     print(f"{depth_label(cfg)} routing, no-drop prompt forward against teacher-forced decode "
-          f"(not gated): {recorder.flips()}; last-logit max |diff| {diff:.4g} against the "
-          f"check's tolerance {tol:.4g}", flush=True)
+          f"(not gated): {check['routing']}; last-logit max |diff| {check['max_abs_diff']:.4g} "
+          f"against the check's tolerance {check['tol']:.4g}", flush=True)
     del params, cache
 
 
