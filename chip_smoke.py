@@ -86,6 +86,29 @@ Phases, in order; any failure raises and the script exits non-zero:
    rwkv6, zamba2 and granite: the gradient pass and the AdamW update timed
    apart, the forward alone, and under torch.profiler the device's busy
    time, idle share and top kernels.
+6. The network engines (``repro_torch.network``, the port of the JAX
+   package's compiled ``xla`` passes; no kernel of their own), each on the
+   card and through the port's CPU path on the same seeded inputs: (a) DOR
+   link loads of the bisection pairing on Mira's (16, 16, 12, 8, 2) and
+   JUQUEEN's (28, 8, 8, 8, 2) node tori and of 2^20 random messages on
+   Mira, exactly equal; (b) the paper's Table 1, Mira's current and
+   proposed partitions of 4, 8, 16 and 24 midplanes, and both whole
+   machines, pairing drained by ``simulate_flows`` (makespans, steps,
+   subflows, incidence entries; completions within 1e-9 relative and equal
+   steps; the ratios 2, 2, 2 and 4/3, and the whole machines' makespans 4
+   and 7 of the JAX package's NumPy engine); (c) ``drain_batch`` at
+   benchmarks/bench_backend.py's size, 2048 pairing scenarios on the 32^3
+   torus, 16 sampled lanes per job geometry against the CPU path and one
+   lane against ``drain`` bit for bit; (d) ``score_candidates`` on 4096
+   mappings of 24 ranks on Mira's midplane torus and 1024 of 2048 ranks on
+   the 4-midplane partition, row-exact; (e) the contention field of a
+   512-node job among 8 placed ones on Mira's node torus, within 1e-9 x
+   max(1, max|field|) and the same best offset; (f) ``cut_table`` on the
+   Mira, JUQUEEN and Sequoia midplane tori and Mira's node torus at every
+   size of Mira's scheduler, int64 identical, with Mira's min-cut geometry
+   per midplane count from the card.  Every pass must have been dispatched
+   on the card (``repro_torch.obs.DISPATCHES``); the card and CPU wall
+   times are printed in a ``network`` JSON line.
 
 The line before the last is a JSON object with each kernel's launches on the
 main path, error, times and bound; the last line names the device.  With no
@@ -171,6 +194,33 @@ TRAIN_LAYERS = {"granite-3-8b": 8, "mixtral-8x7b": 2}
 EVAL_LAYERS = {"mixtral-8x7b": 16}  # the eval step holds no moments: as served
 PROFILE_TRAIN = ["rwkv6-3b", "zamba2-2.7b", "granite-3-8b"]  # phase 5e
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 4
+
+# Phase 6: the network engines (repro_torch.network) at the sizes of the
+# paper's machines (src/repro/core/bgq.py).  A BG/Q midplane is 4 x 4 x 4 x 4
+# x 2 nodes, so a partition of (m0, m1, m2, m3) midplanes is the node torus
+# (4 m0, 4 m1, 4 m2, 4 m3, 2).
+MIDPLANE_TORI = {"Mira": (4, 4, 3, 2), "JUQUEEN": (7, 2, 2, 2), "Sequoia": (4, 4, 4, 3)}
+# Mira's scheduler partitions by midplane count (the paper's Table 6,
+# current geometry) and the geometries it proposes where they do better
+# (Table 1), with the ratio of their pairing makespans.
+MIRA_SCHEDULER_PARTITIONS = {
+    1: (1, 1, 1, 1), 2: (2, 1, 1, 1), 4: (4, 1, 1, 1), 8: (4, 2, 1, 1), 16: (4, 4, 1, 1),
+    24: (4, 3, 2, 1), 32: (4, 4, 2, 1), 48: (4, 4, 3, 1), 64: (4, 4, 2, 2), 96: (4, 4, 3, 2),
+}
+MIRA_PROPOSED_PARTITIONS = {4: (2, 2, 1, 1), 8: (2, 2, 2, 1), 16: (2, 2, 2, 2), 24: (3, 2, 2, 2)}
+TABLE1_RATIOS = {4: 2.0, 8: 2.0, 16: 2.0, 24: 4.0 / 3.0}
+# The whole machines' pairing makespans from the JAX package's NumPy
+# simulate_flows (one step each).
+FULL_MACHINE_PAIRING = {"Mira": 4.0, "JUQUEEN": 7.0}
+NET_RANDOM_MESSAGES = 1 << 20  # (a): random messages on Mira's node torus, volumes 1-4
+NET_BENCH_MACHINE = (32, 32, 32)  # (c): benchmarks/bench_backend.py's batched drain
+NET_BENCH_GEOMETRIES = ((8, 8, 8), (16, 8, 4), (4, 16, 8), (8, 4, 16))
+NET_BENCH_LANES, NET_BENCH_SAMPLED = 512, 16
+NET_SCORER = [  # (d): (machine, the pairing job's logical grid, candidate mappings)
+    ((4, 4, 3, 2), (4, 3, 2), 4096),  # the bench's scorer case: 24 ranks on Mira's midplanes
+    ((16, 4, 4, 4, 2), (16, 4, 4, 4, 2), 1024),  # 2048 ranks on the 4-midplane partition
+]
+NET_PLACED_JOBS, NET_JOB = 8, (8, 4, 4, 4, 2)  # (e): jobs of 512 nodes on Mira's node torus
 
 
 def serve_args(arch: str):
@@ -1234,6 +1284,229 @@ def phase5_training(torch, smi: str, counters: dict) -> dict:
     return by_path
 
 
+def node_dims(midplanes) -> tuple:
+    """The node torus of a BG/Q partition of ``midplanes`` midplanes."""
+    return tuple(4 * m for m in midplanes) + (2,)
+
+
+def wall_s(fn):
+    """(fn(), seconds on the host clock).  The network entry points return
+    NumPy, so the card's work is done when ``fn`` returns."""
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
+
+
+def check_drain(label: str, card, cpu) -> float:
+    """Hold a drain on the card against the CPU path: completions within
+    1e-9 relative, the same steps.  Returns the largest relative gap."""
+    import numpy as np
+
+    scale = max(cpu.makespan, 1.0)
+    gap = float(np.abs(card.flow_completion - cpu.flow_completion).max(initial=0.0)) / scale
+    if gap > 1e-9 or card.steps != cpu.steps:
+        raise RuntimeError(f"phase 6: {label}: card drain {card.makespan!r} in {card.steps} steps, "
+                           f"CPU {cpu.makespan!r} in {cpu.steps} (relative gap {gap:.3e})")
+    return gap
+
+
+def phase6_network(smi: str, card: str = "cuda") -> dict:
+    """Phase 6: the network engines' passes on ``card``, each held against
+    the port's CPU path on the same inputs (seeded NumPy).  Returns the
+    numbers of the ``network`` line."""
+    import numpy as np
+
+    from repro_torch import network as net
+    from repro_torch.obs import DISPATCHES
+
+    DISPATCHES.clear()
+    rng = np.random.default_rng(0)
+    mira = node_dims(MIDPLANE_TORI["Mira"])
+    juqueen = node_dims(MIDPLANE_TORI["JUQUEEN"])
+    out = {}
+
+    # (a) DOR link loads, exact.
+    def random_messages(dims, m):
+        src = np.stack([rng.integers(0, a, m) for a in dims], axis=1)
+        dst = np.stack([rng.integers(0, a, m) for a in dims], axis=1)
+        return src, dst, rng.integers(1, 5, m).astype(np.float64)
+
+    net.route_dor((4, 4), [[0, 0]], [[2, 1]], 1.0, device=card)  # the first call's set-up
+    out["route_loads"] = []
+    for label, dims, traffic in (
+        ("Mira pairing", mira, net.bisection_pairing(mira)),
+        ("JUQUEEN pairing", juqueen, net.bisection_pairing(juqueen)),
+        ("Mira random messages", mira, random_messages(mira, NET_RANDOM_MESSAGES)),
+    ):
+        loads, t_card = wall_s(lambda: net.route_dor(dims, *traffic, device=card))
+        ref, t_cpu = wall_s(lambda: net.route_dor(dims, *traffic, device="cpu"))
+        if not np.array_equal(loads, ref):
+            raise RuntimeError(f"phase 6a: {label}: link loads on the card differ from the CPU path's")
+        row = {"case": label, "dims": list(dims), "messages": int(traffic[0].shape[0]),
+               "max_link_load": net.max_link_load(dims, loads), "card_ms": t_card * 1e3, "cpu_ms": t_cpu * 1e3}
+        out["route_loads"].append(row)
+        print(f"phase 6a: route_dor {label} {dims}, {row['messages']} messages: max link load "
+              f"{row['max_link_load']}, equal to the CPU path's loads; card {row['card_ms']:.3f} ms, "
+              f"CPU {row['cpu_ms']:.3f} ms", flush=True)
+
+    # (b) The paper's Table 1 and the whole machines, pairing drained.
+    def pairing_drain(label, dims):
+        src, dst, vol = net.bisection_pairing(dims)
+        paths, t_paths = wall_s(lambda: net.dor_paths(dims, src, dst, vol))
+        _, t_prep = wall_s(lambda: net.prepare_drain(paths, device=card))  # its host part, timed alone
+        res, t_card = wall_s(lambda: net.simulate_flows(paths, device=card))
+        ref, t_cpu = wall_s(lambda: net.simulate_flows(paths, device="cpu"))
+        gap = check_drain(label, res, ref)
+        row = {"case": label, "dims": list(dims), "makespan": res.makespan, "steps": res.steps,
+               "subflows": paths.n_flows, "entries": int(paths.link_ids.shape[0]),
+               "max_rel_gap": gap, "paths_ms": t_paths * 1e3, "prepare_drain_ms": t_prep * 1e3,
+               "card_ms": t_card * 1e3, "cpu_ms": t_cpu * 1e3}
+        print(f"phase 6b: {label} {dims}: makespan {res.makespan!r}, {res.steps} step(s), "
+              f"{paths.n_flows} subflows, {row['entries']} entries; simulate_flows on the card "
+              f"{row['card_ms']:.3f} ms (prepare_drain alone {row['prepare_drain_ms']:.3f} ms), on the "
+              f"CPU {row['cpu_ms']:.3f} ms; paths on the host {row['paths_ms']:.3f} ms", flush=True)
+        return row
+
+    warm = net.dor_paths((4, 4), *net.bisection_pairing((4, 4)))
+    for dev in (card, "cpu"):  # the first call's set-up
+        net.simulate_flows(warm, device=dev)
+    out["table1"] = []
+    for mp, proposed in sorted(MIRA_PROPOSED_PARTITIONS.items()):
+        current = MIRA_SCHEDULER_PARTITIONS[mp]
+        cur = pairing_drain(f"Mira {mp} midplanes, current {current}", node_dims(current))
+        new = pairing_drain(f"Mira {mp} midplanes, proposed {proposed}", node_dims(proposed))
+        ratio = cur["makespan"] / new["makespan"]
+        if abs(ratio - TABLE1_RATIOS[mp]) > 1e-9:
+            raise RuntimeError(f"phase 6b: Mira {mp} midplanes: makespan ratio {ratio!r}, "
+                               f"the paper's {TABLE1_RATIOS[mp]!r}")
+        out["table1"].append({"midplanes": mp, "current": cur, "proposed": new, "ratio": ratio})
+        print(f"phase 6b: Mira {mp} midplanes: current / proposed makespan {ratio!r}", flush=True)
+    out["full_machine"] = []
+    for name, dims in (("Mira", mira), ("JUQUEEN", juqueen)):
+        row = pairing_drain(f"{name}, whole machine", dims)
+        if abs(row["makespan"] - FULL_MACHINE_PAIRING[name]) > 1e-9 * FULL_MACHINE_PAIRING[name]:
+            raise RuntimeError(f"phase 6b: {name}: makespan {row['makespan']!r}, the JAX "
+                               f"package's NumPy engine {FULL_MACHINE_PAIRING[name]!r}")
+        out["full_machine"].append(row)
+
+    # (c) drain_batch at benchmarks/bench_backend.py's size.
+    t_card = t_cpu = gap = 0.0
+    subflows = 0
+    for i, geom in enumerate(NET_BENCH_GEOMETRIES):
+        src, dst, _ = net.bisection_pairing(geom)
+        paths = net.dor_paths(NET_BENCH_MACHINE, src, dst, np.ones(src.shape[0]))
+        vols = rng.integers(1, 3, size=(NET_BENCH_LANES, paths.n_flows)).astype(np.float64)
+        subflows += paths.n_flows * NET_BENCH_LANES
+        if i == 0:
+            net.drain_batch(net.prepare_drain(paths, device=card), vols[:2])  # the first call's set-up
+        (fc, steps), t = wall_s(lambda: net.drain_batch(net.prepare_drain(paths, device=card), vols))
+        t_card += t
+        lanes = np.sort(rng.choice(NET_BENCH_LANES, NET_BENCH_SAMPLED, replace=False))
+        (fc_cpu, steps_cpu), t = wall_s(lambda: net.drain_batch(net.prepare_drain(paths, device="cpu"), vols[lanes]))
+        t_cpu += t
+        scale = np.maximum(fc_cpu.max(axis=1, keepdims=True), 1.0)
+        gap = max(gap, float((np.abs(fc[lanes] - fc_cpu) / scale).max()))
+        if gap > 1e-9 or not np.array_equal(steps[lanes], steps_cpu):
+            raise RuntimeError(f"phase 6c: {geom}: sampled lanes on the card differ from the CPU path "
+                               f"(relative gap {gap:.3e}, steps {steps[lanes]} / {steps_cpu})")
+        one, one_steps = net.drain(net.prepare_drain(paths, device=card), vols[lanes[0]])
+        if not np.array_equal(one, fc[lanes[0]]) or one_steps != steps[lanes[0]]:
+            raise RuntimeError(f"phase 6c: {geom}: drain of lane {lanes[0]} differs from its drain_batch lane")
+    scenarios = len(NET_BENCH_GEOMETRIES) * NET_BENCH_LANES
+    out["drain_batch"] = {"machine": list(NET_BENCH_MACHINE), "scenarios": scenarios, "subflows": subflows,
+                          "card_s": t_card, "scenarios_per_s": scenarios / t_card,
+                          "cpu_sampled_lanes": len(NET_BENCH_GEOMETRIES) * NET_BENCH_SAMPLED,
+                          "cpu_sampled_s": t_cpu, "max_rel_gap": gap}
+    print(f"phase 6c: drain_batch, {scenarios} pairing scenarios on {NET_BENCH_MACHINE} ({subflows} "
+          f"subflows): card {t_card:.3f} s, {scenarios / t_card:.1f} scenarios/s; the CPU path "
+          f"{t_cpu:.3f} s for {out['drain_batch']['cpu_sampled_lanes']} sampled lanes, relative gap "
+          f"{gap:.3e}, the same steps", flush=True)
+
+    # (d) Batched candidate scoring, row-exact.
+    out["score_candidates"] = []
+    for dims, logical, batch in NET_SCORER:
+        traffic = net.pattern_traffic(logical, "pairing")
+        n_cells, n_ranks = net.volume(dims), net.volume(logical)
+        cells = np.stack([rng.choice(n_cells, n_ranks, replace=False) for _ in range(batch)])
+        coords = np.stack(np.unravel_index(cells, dims), axis=-1).astype(np.int64)
+        net.score_candidates(dims, coords[:2], traffic, device=card)  # the first call's set-up
+        (cong, dil), t_card = wall_s(lambda: net.score_candidates(dims, coords, traffic, device=card))
+        (cong_c, dil_c), t_cpu = wall_s(lambda: net.score_candidates(dims, coords, traffic, device="cpu"))
+        if not (np.array_equal(cong, cong_c) and np.array_equal(dil, dil_c)):
+            raise RuntimeError(f"phase 6d: {dims}: candidate scores on the card differ from the CPU path's")
+        row = {"dims": list(dims), "ranks": n_ranks, "messages": int(traffic[0].shape[0]),
+               "candidates": batch, "congestion_range": [float(cong.min()), float(cong.max())],
+               "card_ms": t_card * 1e3, "cpu_ms": t_cpu * 1e3}
+        drained = [r[side] for r in out["table1"] for side in ("current", "proposed")
+                   if r[side]["dims"] == list(dims)]
+        if tuple(logical) == tuple(dims) and drained:
+            # The identity mapping is the pairing (b) drained on this
+            # partition: its congestion is the predicted makespan.
+            ident = np.stack(np.unravel_index(np.arange(n_ranks), dims), axis=-1)
+            row["identity_congestion"] = net.score_mapping(dims, ident, traffic, device=card).congestion
+            if row["identity_congestion"] != drained[0]["makespan"]:
+                raise RuntimeError(f"phase 6d: {dims}: identity mapping's congestion "
+                                   f"{row['identity_congestion']!r}, drained makespan {drained[0]['makespan']!r}")
+        out["score_candidates"].append(row)
+        print(f"phase 6d: score_candidates, {batch} random mappings of a {n_ranks}-rank pairing job on "
+              f"{dims}: congestion {row['congestion_range']}, row-exact against the CPU path; card "
+              f"{row['card_ms']:.3f} ms, CPU {row['cpu_ms']:.3f} ms"
+              + (f"; identity mapping {row['identity_congestion']!r}" if "identity_congestion" in row else ""),
+              flush=True)
+
+    # (e) The contention field of a 512-node job among 8 placed ones.
+    tiles = tuple(a // w for a, w in zip(mira, NET_JOB))
+    grid = np.zeros(mira, dtype=bool)
+    for tile in rng.choice(net.volume(tiles), NET_PLACED_JOBS, replace=False):
+        corner = np.unravel_index(tile, tiles)
+        grid[tuple(slice(c * w, (c + 1) * w) for c, w in zip(corner, NET_JOB))] = True
+    mask = net.interference_mask(grid)
+    net.contention_field((4, 4), (2, 2), net.interference_mask(np.eye(4, dtype=bool)), device=card)
+    field, t_card = wall_s(lambda: net.contention_field(mira, NET_JOB, mask, device=card))
+    ref, t_cpu = wall_s(lambda: net.contention_field(mira, NET_JOB, mask, device="cpu"))
+    err = float(np.abs(field - ref).max())
+    best = [tuple(int(x) for x in np.unravel_index(np.argmin(np.round(f, 9)), mira)) for f in (field, ref)]
+    if err > 1e-9 * max(1.0, float(np.abs(ref).max())) or best[0] != best[1]:
+        raise RuntimeError(f"phase 6e: contention field on the card: error {err:.3e}, best offset "
+                           f"{best[0]} against the CPU path's {best[1]}")
+    out["contention_field"] = {"dims": list(mira), "job": list(NET_JOB), "placed_jobs": NET_PLACED_JOBS,
+                               "max_field": float(ref.max()), "max_abs_err": err, "best_offset": list(best[0]),
+                               "card_ms": t_card * 1e3, "cpu_ms": t_cpu * 1e3}
+    print(f"phase 6e: contention_field of {NET_JOB} among {NET_PLACED_JOBS} placed jobs on {mira}: "
+          f"max {float(ref.max())!r}, card against CPU {err:.3e}, best offset {best[0]} on both; card "
+          f"{t_card * 1e3:.3f} ms, CPU {t_cpu * 1e3:.3f} ms", flush=True)
+
+    # (f) Cut tables, int64 identical.
+    out["cut_table"] = []
+    for name, torus, unit in [(n, t, 1) for n, t in MIDPLANE_TORI.items()] + [("Mira nodes", mira, 512)]:
+        t_card = t_cpu = 0.0
+        rows = 0
+        for mp in MIRA_SCHEDULER_PARTITIONS:
+            table, t = wall_s(lambda: net.cut_table(torus, mp * unit, device=card))
+            t_card += t
+            ref, t = wall_s(lambda: net.cut_table(torus, mp * unit, device="cpu"))
+            t_cpu += t
+            if table.items() != ref.items() or table.cuts.dtype != np.int64:
+                raise RuntimeError(f"phase 6f: {name} {torus}, t = {mp * unit}: cut table differs")
+            rows += len(table)
+            if name == "Mira":
+                geom, cut = table.min_cut_geometry()
+                print(f"phase 6f: Mira, {mp} midplanes: min-cut geometry {geom}, cut {cut} links "
+                      f"(card)", flush=True)
+        out["cut_table"].append({"torus": name, "dims": list(torus), "geometries": rows,
+                                 "card_ms": t_card * 1e3, "cpu_ms": t_cpu * 1e3})
+        print(f"phase 6f: cut_table on {name} {torus} at each of Mira's scheduler sizes: {rows} "
+              f"geometries, int64 identical; card {t_card * 1e3:.3f} ms, CPU {t_cpu * 1e3:.3f} ms", flush=True)
+
+    out["dispatches"] = {f"{name}/{dev}": n for (name, dev), n in sorted(DISPATCHES.items())}
+    missing = [name for name in ("route_loads", "drain", "drain_batch", "score_candidates",
+                                 "contention_field", "cut_scores") if not DISPATCHES[(name, card)]]
+    if missing:
+        raise RuntimeError(f"phase 6: no dispatch on the card of {missing}")
+    print(f"phase 6: dispatches {out['dispatches']} on {smi}", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1293,6 +1566,13 @@ def main() -> int:
     t_phase = time.perf_counter()
     by_path.update(phase5_training(torch, smi, counters))
     print(f"phase 5: wall {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    # -- phase 6: the network engines --------------------------------------------
+    t_phase = time.perf_counter()
+    network = phase6_network(smi)
+    print(f"phase 6: wall {time.perf_counter() - t_phase:.1f} s", flush=True)
+    print(json.dumps({"network": network, "card": smi}))
+
 
     sources = {
         "flash_fwd": ("src/repro_torch/kernels/attention/csrc/flash_fwd_sm90.cu",

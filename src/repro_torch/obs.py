@@ -1,4 +1,5 @@
-"""Wall-clock timers for the launchers (counterpart of ``repro.obs.timer``).
+"""Wall-clock timers for the launchers (counterpart of ``repro.obs.timer``)
+and the network passes' dispatch counts (``backend.dispatches``).
 
 A copy of the part of ``repro.obs.trace.Timer`` that the serving driver
 uses: an always-measuring context manager whose ``elapsed`` holds seconds.
@@ -10,7 +11,19 @@ the ``with`` block, where the JAX driver calls ``block_until_ready``.
 from __future__ import annotations
 
 import time
+from collections import Counter
 from typing import Any, Dict
+
+#: Calls of each pass of ``repro_torch.network.backend``, keyed by (pass,
+#: device type) — the counterpart of the JAX package's
+#: ``backend.dispatches`` counter.  It has no jit-compile counter: eager
+#: torch compiles nothing per shape.
+DISPATCHES: Counter = Counter()
+
+
+def count_dispatch(name: str, device_type: str) -> None:
+    """Count one call of the network pass ``name`` on ``device_type``."""
+    DISPATCHES[(name, device_type)] += 1
 
 
 class Timer:

@@ -1,12 +1,14 @@
-"""Tests of the port's CUDA kernels on the card.  They import no JAX (the
-machine with the card has none) and skip without a card: a CUDA kernel has
-no CPU mode.  Run them there with
+"""Tests of the port's CUDA kernels, and of its network passes, on the
+card.  They import no JAX (the machine with the card has none) and skip
+without a card: a CUDA kernel has no CPU mode, and the network passes are
+held here against their own CPU path.  Run them there with
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
 
 import dataclasses
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -18,6 +20,7 @@ from repro_torch.kernels.rwkv6 import ref as rwkv6_ref
 from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.kernels.ssd import ref as ssd_ref
 from repro_torch.models import build_model
+from repro_torch import network as net
 
 pytestmark = pytest.mark.cuda
 
@@ -447,3 +450,99 @@ def test_kernel_paths_refuse_autograd_on_the_card(cuda, name):
     with pytest.raises(RuntimeError, match="no backward"):
         model.loss(params, {"tokens": torch.zeros(2, 64, dtype=torch.long, device=cuda)})
     assert [m.launches for m in counters] == before
+
+
+# ---------------------------------------------------------------------------
+# The network engines' passes (repro_torch.network): the card against the
+# port's CPU path on the same inputs.
+# ---------------------------------------------------------------------------
+def _net_messages(seed, dims, m):
+    rng = np.random.default_rng(seed)
+    src = np.stack([rng.integers(0, a, m) for a in dims], axis=1)
+    dst = np.stack([rng.integers(0, a, m) for a in dims], axis=1)
+    return src, dst, rng.integers(1, 5, m).astype(np.float64)
+
+
+@pytest.mark.parametrize("dims", [(16, 4, 4, 4, 2), (7, 5, 3), (4, 1, 6)])
+@pytest.mark.parametrize("split_ties", [True, False])
+def test_network_route_loads_on_the_card_are_exact(cuda, dims, split_ties):
+    """index_add_ and cumsum sum in any order on the card; integer volumes
+    keep the loads exact."""
+    for traffic in (_net_messages(0, dims, 4096), net.bisection_pairing(dims)):
+        card = net.route_dor(dims, *traffic, split_ties=split_ties, device="cuda")
+        assert np.array_equal(card, net.route_dor(dims, *traffic, split_ties=split_ties, device="cpu"))
+
+
+def test_network_argmin_takes_the_first_tie_on_the_card(cuda):
+    """The drain's next completion is the first flow of least remaining /
+    rate, as np.argmin and jnp.argmin take it."""
+    x = torch.tensor([[3.0, 1.0, 1.0, 2.0], [torch.inf] * 4], dtype=torch.float64, device=cuda)
+    assert x.argmin(dim=1).tolist() == [1, 0]
+    ties = torch.ones(3, 1 << 18, dtype=torch.float64, device=cuda)
+    ties[1, 7] = ties[1, 100_000] = 0.5
+    assert ties.argmin(dim=1).tolist() == [0, 7, 0]
+
+
+@pytest.mark.parametrize("machine, job, float_lane", [
+    ((16, 16, 16), (4, 4, 4), True),  # a lane with no exact sums: still the same steps
+    ((8, 6, 4), (8, 6, 4), False),  # ties in every dimension; a float lane would take 1536 steps
+])
+def test_network_drain_on_the_card_matches_cpu(cuda, machine, job, float_lane):
+    src, dst, _ = net.bisection_pairing(job)
+    paths = net.dor_paths(machine, src, dst, np.ones(src.shape[0]))
+    rng = np.random.default_rng(1)
+    vols = rng.integers(1, 3, size=(8, paths.n_flows)).astype(np.float64)
+    if float_lane:
+        vols[7] = rng.random(paths.n_flows) + 0.5
+    plan = net.prepare_drain(paths, device="cuda")
+    fc, steps = net.drain_batch(plan, vols)
+    fc_cpu, steps_cpu = net.drain_batch(net.prepare_drain(paths, device="cpu"), vols)
+    np.testing.assert_allclose(fc, fc_cpu, rtol=1e-9, atol=1e-12)
+    assert np.array_equal(steps, steps_cpu)
+    for i in (0, 7):
+        one, one_steps = net.drain(plan, vols[i])
+        assert np.array_equal(one, fc[i]) and one_steps == steps[i]
+
+
+@pytest.mark.parametrize("dims, makespan", [((16, 4, 4, 4, 2), 4.0), ((8, 8, 4, 4, 2), 2.0)])
+def test_network_table1_partition_drains_on_the_card(cuda, dims, makespan):
+    """The paper's 4-midplane pair: Mira's current partition against the
+    proposed one (makespans from the JAX package's NumPy engine)."""
+    res = net.simulate_traffic(dims, net.bisection_pairing(dims), device="cuda")
+    ref = net.simulate_traffic(dims, net.bisection_pairing(dims), device="cpu")
+    assert res.makespan == makespan and res.steps == ref.steps == 1
+    np.testing.assert_allclose(res.flow_completion, ref.flow_completion, rtol=1e-9, atol=1e-12)
+
+
+@pytest.mark.parametrize("dims, logical, batch", [((4, 4, 3, 2), (4, 3, 2), 512), ((16, 4, 4, 4, 2), (16, 4, 4, 4, 2), 16)])
+def test_network_score_candidates_on_the_card_are_row_exact(cuda, dims, logical, batch):
+    rng = np.random.default_rng(2)
+    traffic = net.pattern_traffic(logical, "pairing")
+    n_cells, n_ranks = net.volume(dims), net.volume(logical)
+    cells = np.stack([rng.choice(n_cells, n_ranks, replace=False) for _ in range(batch)])
+    coords = np.stack(np.unravel_index(cells, dims), axis=-1)
+    cong, dil = net.score_candidates(dims, coords, traffic, device="cuda")
+    cong_cpu, dil_cpu = net.score_candidates(dims, coords, traffic, device="cpu")
+    assert np.array_equal(cong, cong_cpu) and np.array_equal(dil, dil_cpu)
+
+
+def test_network_contention_field_on_the_card_matches_cpu(cuda):
+    dims = (16, 8, 8, 4, 2)
+    grid = np.zeros(dims, dtype=bool)
+    grid[:8, :4, :4] = True
+    grid[8:12, 4:8] = True
+    mask = net.interference_mask(grid)
+    for oriented in net.orientations((12, 4, 2, 2, 2), dims):
+        card = net.contention_field(dims, oriented, mask, device="cuda")
+        cpu = net.contention_field(dims, oriented, mask, device="cpu")
+        assert np.abs(card - cpu).max() <= 1e-9 * max(1.0, float(np.abs(cpu).max()))
+        assert np.argmin(np.round(card, 9)) == np.argmin(np.round(cpu, 9))
+
+
+@pytest.mark.parametrize("dims", [(4, 4, 3, 2), (7, 2, 2, 2), (4, 4, 4, 3), (16, 16, 12, 8, 2)])
+def test_network_cut_table_on_the_card_is_int64_identical(cuda, dims):
+    unit = 512 if len(dims) == 5 else 1
+    for mp in (1, 2, 4, 8, 16, 24, 32, 48, 64, 96):
+        card = net.cut_table(dims, mp * unit, device="cuda")
+        cpu = net.cut_table(dims, mp * unit, device="cpu")
+        assert card.items() == cpu.items() and card.cuts.dtype == np.int64
