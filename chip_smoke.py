@@ -109,6 +109,26 @@ Phases, in order; any failure raises and the script exits non-zero:
    per midplane count from the card.  Every pass must have been dispatched
    on the card (``repro_torch.obs.DISPATCHES``); the card and CPU wall
    times are printed in a ``network`` JSON line.
+7. The allocation engines (``repro_torch.network``'s advisor, placement
+   search, allocator, scheduler and rank mapping; no kernel of their own),
+   each case on the card and through the port's CPU path, any difference
+   failing the run: (a) the partition advisor over Mira's scheduler table
+   and JUQUEEN's worst geometries at node level, both node tori of every
+   size up to ``ADVISOR_SIMULATE_NODES`` drained (predicted speedup equal
+   to the drained one), Mira's 4/8/16/24 midplanes at 2, 2, 2 and 4/3, and
+   the avoidable-contention ratio per size; (b) the 120-job scenario on
+   the 32^3 torus of ``BENCH_scheduler.json`` under the contention-scored
+   policy with backfill, the card's event log equal to the CPU path's
+   record for record, events/s on both and the card's idle share under
+   torch.profiler; (c) ``simulate_queue`` on Mira's midplanes with a
+   seeded stream, simulated contention and halo rank mapping, under Mira's
+   list, the isoperimetric and the contention-scored policies (the
+   paper's comparison: mean simulated slowdown, bisection efficiency,
+   makespan), the same schedules on both; (d) ``map_ranks`` of an
+   (8, 8, 8, 8, 2) halo job on Mira's node torus, its 3,841 strategies
+   scored in chunks on the card, the same strategy and score on both.
+   Every allocation pass must have been dispatched on the card, and an
+   ``allocation`` JSON line holds the numbers.
 
 The line before the last is a JSON object with each kernel's launches on the
 main path, error, times and bound; the last line names the device.  With no
@@ -221,6 +241,20 @@ NET_SCORER = [  # (d): (machine, the pairing job's logical grid, candidate mappi
     ((16, 4, 4, 4, 2), (16, 4, 4, 4, 2), 1024),  # 2048 ranks on the 4-midplane partition
 ]
 NET_PLACED_JOBS, NET_JOB = 8, (8, 4, 4, 4, 2)  # (e): jobs of 512 nodes on Mira's node torus
+
+# Phase 7: the allocation engines.  A BG/Q midplane is MIDPLANE_NODES nodes;
+# the advisor drains both node tori of a size up to ADVISOR_SIMULATE_NODES
+# nodes: phase 6b drains the largest of them, (16, 16, 4, 4, 2), in about a
+# second on the card, under the 2 s a size may take.
+MIDPLANE_NODES = (4, 4, 4, 4, 2)
+ADVISOR_SIMULATE_NODES = 8192
+# (b): BENCH_scheduler.json's largest grid, its job count, seed and stream
+# (benchmarks/bench_scheduler.py::_service_throughput).
+SCHEDULER_SCENARIO = dict(machine=(32, 32, 32), jobs=120, seed=2, burst_gap=30.0, mean_duration=80.0,
+                          failure_rate=0.002, repair_delay=150.0)
+# (c): a seeded stream of midplane jobs on Mira, sizes from its scheduler table.
+QUEUE_JOBS, QUEUE_SIZES, QUEUE_SEED = 24, (1, 2, 4, 8, 16, 24, 32), 7
+MAP_JOB = ((16, 16, 12, 8, 2), (8, 8, 8, 8, 2))  # (d): (machine, oriented job), halo traffic
 
 
 def serve_args(arch: str):
@@ -1507,6 +1541,193 @@ def phase6_network(smi: str, card: str = "cuda") -> dict:
     return out
 
 
+def check_logs(label: str, card, cpu) -> None:
+    """Two scheduler logs, record for record, every field."""
+    import dataclasses
+
+    def record(e):
+        return (e.time, e.kind, e.seq, e.job_id, e.cells,
+                None if e.request is None else dataclasses.astuple(e.request),
+                None if e.placement is None else dataclasses.astuple(e.placement),
+                e.priority, e.reason, e.source)
+
+    got, want = [record(e) for e in card], [record(e) for e in cpu]
+    if got != want:
+        first = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b), min(len(got), len(want)))
+        raise RuntimeError(f"phase 7: {label}: the card's log differs from the CPU path's at record {first} "
+                           f"({len(got)} / {len(want)} records)")
+
+
+def queue_jobs(net) -> list:
+    """(c)'s seeded stream of midplane jobs."""
+    import numpy as np
+
+    rng = np.random.default_rng(QUEUE_SEED)
+    jobs, t = [], 0.0
+    for i in range(QUEUE_JOBS):
+        t += float(rng.exponential(2.0))
+        jobs.append(net.JobRequest(i, int(rng.choice(QUEUE_SIZES)), duration=float(rng.uniform(4.0, 16.0)),
+                                   arrival=t))
+    return jobs
+
+
+def profile_idle_share(fn) -> tuple:
+    """``fn()`` (card work ending in host synchronisations) run untraced,
+    then once under torch.profiler, whose kernel intervals give the
+    device's busy time; the idle share divides by the untraced wall, since
+    the tracer slows the host.  Returns (untraced result, numbers)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    t0 = time.perf_counter()
+    out = fn()
+    wall_us = (time.perf_counter() - t0) * 1e6
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+    by_name = device_time_by_kernel(prof)
+    busy_us = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    return out, {"wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
+                 "device_idle_share": 1.0 - busy_us / wall_us, "kernels": len(by_name),
+                 "top_kernels_ms": [(name[:60], us / 1e3) for name, us in top]}
+
+
+def phase7_allocation(smi: str, card: str = "cuda") -> dict:
+    """Phase 7: the allocation engines on ``card``, each case held against
+    the port's CPU path on the same inputs.  Returns the numbers of the
+    ``allocation`` line."""
+    import numpy as np
+
+    from repro_torch import network as net
+    from repro_torch.core import bgq
+    from repro_torch.network import backend
+    from repro_torch.obs import DISPATCHES
+
+    DISPATCHES.clear()
+    out = {}
+
+    # (a) The partition advisor, Mira's scheduler table and JUQUEEN's worst geometries.
+    juqueen = bgq.JUQUEEN
+    tables = {"Mira": (MIDPLANE_TORI["Mira"], MIRA_SCHEDULER_PARTITIONS),
+              "JUQUEEN": (MIDPLANE_TORI["JUQUEEN"],
+                          {mp: juqueen.worst_partition(mp)[0] for mp in juqueen.partition_sizes()})}
+    out["advisor"] = []
+    for name, (dims, table) in tables.items():
+        small = [s for s in sorted(table) if s * net.volume(MIDPLANE_NODES) <= ADVISOR_SIMULATE_NODES]
+        rows = {}
+        for simulate, sizes in ((True, small), (False, [s for s in sorted(table) if s not in small])):
+            got, t_card = wall_s(lambda: net.advise_policy_table(
+                dims, table, unit_node_dims=MIDPLANE_NODES, simulate=simulate, sizes=sizes, device=card))
+            want, t_cpu = wall_s(lambda: net.advise_policy_table(
+                dims, table, unit_node_dims=MIDPLANE_NODES, simulate=simulate, sizes=sizes, device="cpu"))
+            for a, b in zip(got, want):
+                if a != b:
+                    raise RuntimeError(f"phase 7a: {name} {a.units} midplanes: card {a} against CPU {b}")
+                if simulate and a.simulated_speedup != a.predicted_speedup:
+                    raise RuntimeError(f"phase 7a: {name} {a.units} midplanes: drained {a.simulated_speedup!r}, "
+                                       f"predicted {a.predicted_speedup!r}")
+                rows[a.units] = {"midplanes": a.units, "current": list(a.current_geometry),
+                                 "optimal": list(a.optimal_geometry), "predicted_speedup": a.predicted_speedup,
+                                 "simulated_speedup": a.simulated_speedup, "certified": a.certified}
+            out.setdefault("advisor_s", {})[f"{name} simulate={simulate}"] = {"card_s": t_card, "cpu_s": t_cpu}
+        for s, row in sorted(rows.items()):
+            ratio, t_card = wall_s(lambda: net.avoidable_contention_ratio(dims, s, MIDPLANE_NODES, device=card))
+            if ratio != net.avoidable_contention_ratio(dims, s, MIDPLANE_NODES, device="cpu"):
+                raise RuntimeError(f"phase 7a: {name} {s} midplanes: avoidable contention differs")
+            row["avoidable_contention_ratio"] = ratio
+            print(f"phase 7a: {name} {s} midplanes: current {tuple(row['current'])} -> optimal "
+                  f"{tuple(row['optimal'])}, predicted speedup {row['predicted_speedup']!r}"
+                  + (f", drained {row['simulated_speedup']!r}" if row["simulated_speedup"] is not None else "")
+                  + f"; avoidable contention ratio {ratio!r}", flush=True)
+        if name == "Mira":
+            for mp, want in TABLE1_RATIOS.items():
+                if rows[mp]["predicted_speedup"] != want:
+                    raise RuntimeError(f"phase 7a: Mira {mp} midplanes: speedup {rows[mp]['predicted_speedup']!r}, "
+                                       f"the paper's {want!r}")
+        out["advisor"].append({"machine": name, "dims": list(dims), "rows": list(rows.values())})
+    print(f"phase 7a: advisor wall times (card / CPU): {out['advisor_s']}", flush=True)
+
+    # (b) The 32^3 scenario under the contention-scored policy.
+    sc = SCHEDULER_SCENARIO
+    scenario = net.generate_scenario(sc["machine"], sc["jobs"], seed=sc["seed"], burst_gap=sc["burst_gap"],
+                                     mean_duration=sc["mean_duration"], failure_rate=sc["failure_rate"],
+                                     repair_delay=sc["repair_delay"])
+
+    def scenario_run(dev):
+        return net.scheduler_throughput(scenario, net.ContentionScoredPolicy(), backfill=True, device=dev)
+
+    svc, eps_card_cold = scenario_run(card)  # the first run fills the per-device caches
+    (svc_warm, eps_card), prof = profile_idle_share(lambda: scenario_run(card))
+    svc_cpu, eps_cpu = scenario_run("cpu")
+    check_logs("the 32^3 scenario", svc.log, svc_cpu.log)
+    check_logs("the 32^3 scenario, warm", svc_warm.log, svc_cpu.log)
+    jobs = svc.result().jobs
+    out["scenario"] = {"machine": list(sc["machine"]), "jobs": sc["jobs"], "events": svc.events_processed,
+                       "scheduled": len(jobs), "rejected": len(svc.rejected),
+                       "mean_contention": svc.result().mean_contention,
+                       "events_per_s_card_cold": eps_card_cold, "events_per_s_card": eps_card,
+                       "events_per_s_cpu": eps_cpu, "profile": prof}
+    print(f"phase 7b: {sc['jobs']} jobs on {sc['machine']}, contention-scored with backfill: "
+          f"{svc.events_processed} events, {len(jobs)} scheduled, the card's log equal to the CPU path's; "
+          f"events/s card {eps_card:.1f} (first run {eps_card_cold:.1f}), CPU {eps_cpu:.1f}; device busy "
+          f"{prof['device_busy_ms']:.3f} of {prof['wall_ms']:.3f} ms, idle share "
+          f"{prof['device_idle_share']:.4f}; top {prof['top_kernels_ms'][:3]}", flush=True)
+
+    # (c) The paper's comparison: three policies on Mira with simulated contention.
+    out["queue"] = []
+    policies = [("list", lambda: net.ListPolicy(MIRA_SCHEDULER_PARTITIONS)),
+                ("isoperimetric", net.IsoperimetricPolicy), ("contention-scored", net.ContentionScoredPolicy)]
+    for label, make in policies:
+        runs = {}
+        for dev in (card, "cpu"):
+            runs[dev] = wall_s(lambda: net.simulate_queue(
+                MIDPLANE_TORI["Mira"], queue_jobs(net), make(), MIDPLANE_NODES,
+                contention="simulated", mapping_pattern="halo", device=dev))
+        (res, t_card), (ref, t_cpu) = runs[card], runs["cpu"]
+        for a, b in zip(res.jobs, ref.jobs):
+            same = (a.placement == b.placement and (a.start, a.end) == (b.start, b.end)
+                    and a.comm_lower_bound == b.comm_lower_bound and a.mapping.strategy == b.mapping.strategy
+                    and abs(a.simulated_comm_time - b.simulated_comm_time) <= 1e-9 * max(1.0, b.simulated_comm_time))
+            if not same:
+                raise RuntimeError(f"phase 7c: {label}: job {a.request.job_id} differs on the card: {a} / {b}")
+        if len(res.jobs) != len(ref.jobs) or res.rejected != ref.rejected:
+            raise RuntimeError(f"phase 7c: {label}: the card scheduled {len(res.jobs)}, the CPU {len(ref.jobs)}")
+        row = {"policy": label, "jobs": len(res.jobs), "rejected": len(res.rejected),
+               "mean_simulated_slowdown": res.mean_simulated_slowdown,
+               "mean_bisection_efficiency": res.mean_bisection_efficiency, "makespan": res.makespan,
+               "mean_wait": res.mean_wait, "mean_contention": res.mean_contention,
+               "card_s": t_card, "cpu_s": t_cpu}
+        out["queue"].append(row)
+        print(f"phase 7c: Mira {MIDPLANE_TORI['Mira']}, {QUEUE_JOBS} jobs, {label}: mean simulated slowdown "
+              f"{row['mean_simulated_slowdown']!r}, mean bisection efficiency {row['mean_bisection_efficiency']!r}, "
+              f"makespan {row['makespan']!r}, rejected {row['rejected']}; the same schedule on both; card "
+              f"{t_card:.3f} s, CPU {t_cpu:.3f} s", flush=True)
+
+    # (d) The mapping catalogue of a 8192-rank halo job, chunked on the card.
+    dims, job = MAP_JOB
+    mapped, t_card = wall_s(lambda: net.map_ranks(dims, job, (0,) * len(dims), pattern="halo", device=card))
+    ref, t_cpu = wall_s(lambda: net.map_ranks(dims, job, (0,) * len(dims), pattern="halo", device="cpu"))
+    if (mapped.strategy, mapped.score) != (ref.strategy, ref.score) or not np.array_equal(mapped.coords, ref.coords):
+        raise RuntimeError(f"phase 7d: card {mapped.strategy} {mapped.score}, CPU {ref.strategy} {ref.score}")
+    messages = int(mapped.rank_traffic[0].shape[0])
+    catalogue = sum(1 for _ in net.axis_permutation_orders(job)) + 1  # the orders (identity among them), the snake
+    chunk = backend.score_chunk(dims, messages)
+    out["map_ranks"] = {"dims": list(dims), "job": list(job), "ranks": mapped.num_ranks, "messages": messages,
+                        "candidates": catalogue, "chunk": chunk, "strategy": mapped.strategy,
+                        "congestion": mapped.score.congestion, "dilation": mapped.score.dilation,
+                        "identity_congestion": mapped.identity_score.congestion, "card_s": t_card, "cpu_s": t_cpu}
+    print(f"phase 7d: map_ranks of a {job} halo job ({mapped.num_ranks} ranks, {messages} messages) on {dims}: "
+          f"{catalogue} candidates in chunks of {chunk}; {mapped.strategy}, congestion {mapped.score.congestion!r}, "
+          f"dilation {mapped.score.dilation!r}, the same on both; card {t_card:.3f} s, CPU {t_cpu:.3f} s", flush=True)
+
+    out["dispatches"] = {f"{name}/{dev}": n for (name, dev), n in sorted(DISPATCHES.items())}
+    missing = [name for name in ("cut_scores", "first_fit", "placement_search", "contention_field",
+                                 "score_candidates", "route_loads", "drain") if not DISPATCHES[(name, card)]]
+    if missing:
+        raise RuntimeError(f"phase 7: no dispatch on the card of {missing}")
+    print(f"phase 7: dispatches {out['dispatches']} on {smi}", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1572,6 +1793,12 @@ def main() -> int:
     network = phase6_network(smi)
     print(f"phase 6: wall {time.perf_counter() - t_phase:.1f} s", flush=True)
     print(json.dumps({"network": network, "card": smi}))
+
+    # -- phase 7: the allocation engines -------------------------------------------
+    t_phase = time.perf_counter()
+    allocation = phase7_allocation(smi)
+    print(f"phase 7: wall {time.perf_counter() - t_phase:.1f} s", flush=True)
+    print(json.dumps({"allocation": allocation, "card": smi}))
 
 
     sources = {

@@ -14,9 +14,11 @@ passes ``device="cpu"``, where the same code runs on the CPU:
                          device once
 :func:`drain`            max-min progressive filling
 :func:`drain_batch`      many volume lanes of one plan, run together
-:func:`score_candidates` congestion and dilation of B candidate mappings in
-                         one batched pass
+:func:`score_candidates` congestion and dilation of B candidate mappings,
+                         batched in chunks under a memory budget
 :func:`contention_field` the FFT cross-correlation over all load planes
+                         (:func:`snapped_contention`: against an integer
+                         load field, rounded to the exact integer)
 :func:`cut_scores`       the closed-form cuboid cut in int64
 =======================  ====================================================
 
@@ -50,6 +52,7 @@ from repro_torch.obs import count_dispatch
 
 __all__ = [
     "DrainPlan",
+    "SCORE_BUDGET_BYTES",
     "contention_field",
     "cut_scores",
     "drain",
@@ -57,6 +60,8 @@ __all__ = [
     "prepare_drain",
     "route_loads",
     "score_candidates",
+    "score_chunk",
+    "snapped_contention",
 ]
 
 _EPS = 1e-12
@@ -76,27 +81,21 @@ def _tensor(a: np.ndarray, dev: torch.device) -> torch.Tensor:
     return torch.from_numpy(a).to(dev)
 
 
-def _line_strides(dims: Tuple[int, ...], k: int) -> Tuple[int, int]:
-    """(number of dimension-k rings, C-order strides of the other dims)."""
-    other = dims[:k] + dims[k + 1:]
-    strides = []
-    acc = 1
-    for w in reversed(other):
-        strides.append(acc)
-        acc *= w
-    return volume(other), tuple(reversed(strides))
+def _strides(dims: Tuple[int, ...]) -> Tuple[int, ...]:
+    """C-order strides of the vertex grid."""
+    out, acc = [], 1
+    for a in reversed(dims):
+        out.append(acc)
+        acc *= a
+    return tuple(reversed(out))
 
 
-def _ring_line(dims: Tuple[int, ...], k: int, src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
-    """Dimension-k ring of each message under DOR: dims below k already
-    routed (the destination's coordinates), dims above still at the
-    source's.  ``src``/``dst`` are (..., D); the result is (...)."""
-    _, strides = _line_strides(dims, k)
-    line = torch.zeros(src.shape[:-1], dtype=torch.int64, device=src.device)
-    others = [j for j in range(len(dims)) if j != k]
-    for j, stride in zip(others, strides):
-        line = line + (dst[..., j] if j < k else src[..., j]) * stride
-    return line
+def _flat(dims: Tuple[int, ...], coords: torch.Tensor) -> torch.Tensor:
+    """C-order flat vertex index of (..., D) coordinates."""
+    flat = torch.zeros(coords.shape[:-1], dtype=torch.int64, device=coords.device)
+    for j, stride in enumerate(_strides(dims)):
+        flat += coords[..., j] * stride
+    return flat
 
 
 # ---------------------------------------------------------------------------
@@ -136,42 +135,90 @@ def route_loads(
     return _route_loads(dims, s_t, d_t, v_t, bool(split_ties)).cpu().numpy()
 
 
+def _ring_loads(
+    dims: Tuple[int, ...],
+    k: int,
+    mixed: torch.Tensor,
+    s: torch.Tensor,
+    d: torch.Tensor,
+    vol: torch.Tensor,
+    split_ties: bool,
+) -> torch.Tensor:
+    """Dimension-k link loads of B lanes of M messages, (B, 2, *dims):
+    direction 0 the '+' links.  ``mixed`` is each message's flat vertex
+    index where dimension k starts under DOR (dims below k already routed:
+    the destination's coordinates; dims from k on: the source's), ``s`` and
+    ``d`` its source and destination coordinate in dimension k, all (B,
+    M).  Messages that do not move in dimension k add nothing and are left
+    out first.  Each cyclic segment takes +v at its start, -v at its end
+    and +v at position 0 when it wraps, in a difference array summed along
+    dimension k by one ``cumsum``."""
+    a = dims[k]
+    B, M = mixed.shape
+    n = volume(dims)
+    stride = _strides(dims)[k]
+    delta = torch.remainder(d - s, a).reshape(-1)
+    moving = torch.nonzero(delta).squeeze(1)
+    delta = delta[moving]
+    s = s.reshape(-1)[moving]
+    vol = vol.reshape(-1)[moving]
+    ring0 = mixed.reshape(-1)[moving] - s * stride + torch.div(moving, M, rounding_mode="floor") * (2 * n)
+    rev = a - delta
+    hops = torch.minimum(delta, rev)
+    tie = delta * 2 == a
+    fwd = delta <= rev  # ties route forward in the primary segment
+    v1 = torch.where(tie, vol * (0.5 if split_ties else 1.0), vol)
+    bstart = torch.remainder(s - hops + 1, a)
+    start = torch.where(fwd, s, bstart)
+    segments = [(start, v1, ring0 + (~fwd).long() * n)]  # the '-' plane follows the '+' one
+    if split_ties and a % 2 == 0:
+        # The backward half of each split tie; zero for every other
+        # message, which adds nothing to the loads.
+        segments.append((bstart, (vol * 0.5).masked_fill(~tie, 0.0), ring0 + n))
+    out = torch.zeros(B * 2 * n, dtype=torch.float64, device=mixed.device)
+    for st, v, b in segments:
+        end = st + hops
+        em = torch.where(end >= a, end - a, end)  # end mod a (end < 2a)
+        out.index_add_(0, b + st * stride, v)
+        out.index_add_(0, b + em * stride, (-v).masked_fill(em == 0, 0.0))
+        wraps = torch.nonzero(end > a).squeeze(1)  # most segments do not wrap: leave them out
+        out.index_add_(0, b[wraps], v[wraps])
+    return torch.cumsum(out.view((B, 2) + dims), dim=2 + k).clamp_(min=0.0)
+
+
 def _route_loads(
     dims: Tuple[int, ...], src: torch.Tensor, dst: torch.Tensor, vol: torch.Tensor, split_ties: bool
 ) -> torch.Tensor:
-    loads = torch.zeros((len(dims), 2) + dims, dtype=torch.float64, device=src.device)
+    """The ``(D, 2, *dims)`` load tensor of (M, D) messages, on their
+    device; with a leading lane axis on ``src``/``dst``/``vol`` ((B, M,
+    D) and (B, M)), one tensor per lane, ``(B, D, 2, *dims)``."""
+    lanes = src.ndim == 3
+    if not lanes:
+        src, dst, vol = src[None], dst[None], vol[None]
+    B = src.shape[0]
+    loads = torch.zeros((B, len(dims), 2) + dims, dtype=torch.float64, device=src.device)
+    mixed = _flat(dims, src)
+    for k, (a, stride) in enumerate(zip(dims, _strides(dims))):
+        s, d = src[..., k], dst[..., k]
+        if a > 1:
+            loads[:, k] = _ring_loads(dims, k, mixed, s, d, vol, split_ties)
+        mixed = mixed + (d - s) * stride
+    return loads if lanes else loads[0]
+
+
+def max_load_t(dims: Tuple[int, ...], loads: torch.Tensor, double_link_on_2: bool = True) -> torch.Tensor:
+    """``routing.max_link_load`` of a ``(D, 2, *dims)`` load tensor on its
+    device, as a 0-d tensor (no host synchronisation); of ``(B, D, 2,
+    *dims)`` lanes, a (B,) tensor."""
+    lanes = loads.ndim == len(dims) + 3
+    m = torch.zeros(loads.shape[0] if lanes else (), dtype=loads.dtype, device=loads.device)
     for k, a in enumerate(dims):
         if a == 1:
             continue
-        n_lines, _ = _line_strides(dims, k)
-        line = _ring_line(dims, k, src, dst)
-        s = src[:, k]
-        delta = torch.remainder(dst[:, k] - s, a)
-        rev = a - delta
-        hops = torch.minimum(delta, rev)
-        tie = delta * 2 == a
-        fwd = delta <= rev  # ties route forward in the primary segment
-        v1 = torch.where(tie, vol * (0.5 if split_ties else 1.0), vol).masked_fill(hops == 0, 0.0)
-        bstart = torch.remainder(s - hops + 1, a)
-        start = torch.where(fwd, s, bstart)
-        base = line * a + (~fwd).long() * (n_lines * a)  # '-' plane offset
-        segments = [(start, v1, base)]
-        if split_ties:
-            # The backward half of each split tie; zero for every other
-            # message, which adds nothing to the loads.
-            segments.append((bstart, (vol * 0.5).masked_fill(~tie, 0.0), n_lines * a + line * a))
-        idx, w = [], []
-        for st, v, b in segments:
-            end = st + hops
-            em = torch.where(end >= a, end - a, end)  # end mod a (end < 2a)
-            idx += [b + st, b + em, b]
-            w += [v, (-v).masked_fill(em == 0, 0.0), v.masked_fill(end <= a, 0.0)]
-        diff = torch.zeros(2 * n_lines * a, dtype=torch.float64, device=src.device)
-        diff.index_add_(0, torch.cat(idx), torch.cat(w))
-        ring = torch.cumsum(diff.view(2, n_lines, a), dim=-1).clamp_(min=0.0)
-        other = dims[:k] + dims[k + 1:]
-        loads[k] = ring.view((2,) + other + (a,)).movedim(-1, 1 + k)
-    return loads
+        scale = 0.5 if (a == 2 and double_link_on_2) else 1.0
+        plane = loads[:, k].flatten(1).amax(dim=1) if lanes else loads[k].max()
+        m = torch.maximum(m, scale * plane)
+    return m
 
 
 # ---------------------------------------------------------------------------
@@ -380,6 +427,21 @@ def drain_batch(plan: DrainPlan, vols: np.ndarray, max_steps: int = 100_000) -> 
 # ---------------------------------------------------------------------------
 # Batched candidate scoring.
 # ---------------------------------------------------------------------------
+#: Device memory one :func:`score_candidates` chunk may take (bytes).
+#: Scores are row-exact, so the chunking cannot change a result.
+SCORE_BUDGET_BYTES = 1 << 30
+
+
+def score_chunk(dims: Sequence[int], n_messages: int) -> int:
+    """Candidates scored together under :data:`SCORE_BUDGET_BYTES`: per candidate,
+    the (M, D) endpoint pairs, about a dozen (M,) temporaries per
+    dimension, the difference array's six index/weight entries per
+    message and its (2, N) planes."""
+    dims = tuple(int(a) for a in dims)
+    per = n_messages * (16 * len(dims) + 8 * 12 + 16 * 6) + 16 * 2 * volume(dims)
+    return max(1, SCORE_BUDGET_BYTES // max(per, 1))
+
+
 def score_candidates(
     dims: Sequence[int],
     coords: np.ndarray,
@@ -388,15 +450,17 @@ def score_candidates(
     double_link_on_2: bool = True,
     device: DeviceLike = "cuda",
 ) -> Tuple[np.ndarray, np.ndarray]:
-    """(congestion, dilation) of B candidate rank mappings in one batched
-    pass.  ``coords`` is ``(B, n_ranks, D)`` (or one ``(n_ranks, D)``
-    mapping) and ``traffic`` the shared rank-space ``(src_rank, dst_rank,
-    vol)``.  Row-identical to ``repro.network.mapping.score_mapping`` per
-    candidate for integer or dyadic volumes.
+    """(congestion, dilation) of B candidate rank mappings.  ``coords`` is
+    ``(B, n_ranks, D)`` (or one ``(n_ranks, D)`` mapping) and ``traffic``
+    the shared rank-space ``(src_rank, dst_rank, vol)``.  Row-identical to
+    ``repro.network.mapping.score_mapping`` per candidate for integer or
+    dyadic volumes.
 
-    Per dimension each message's forward and backward cyclic segments are
-    expanded over the ring's positions and summed into their ring with
-    ``index_add_``: O(B * M * a) memory per dimension of length a."""
+    Each candidate's messages are routed as :func:`route_loads` routes
+    them, with the lane folded into the difference array's index, so the
+    batch runs in O(B (M + N)) memory; larger batches than
+    :data:`SCORE_BUDGET_BYTES` allows run in chunks of :func:`score_chunk`
+    candidates, one dispatch each."""
     dev = resolve_device(device)
     dims = tuple(int(a) for a in dims)
     coords = np.asarray(coords, dtype=np.int64)
@@ -411,50 +475,60 @@ def score_candidates(
     if B == 0 or rsrc.shape[0] == 0:
         return np.zeros(B), np.zeros(B)
     vol = np.broadcast_to(np.asarray(vol, dtype=np.float64), rsrc.shape)
-    count_dispatch("score_candidates", dev.type)
-    c = _tensor(coords, dev)
-    src = c[:, _tensor(rsrc, dev)]  # (B, M, D)
-    dst = c[:, _tensor(rdst, dev)]
-    v = _tensor(vol, dev).expand(src.shape[:2])
-    M = src.shape[1]
-    lane = torch.arange(B, device=dev).unsqueeze(1)
-    cong = torch.zeros(B, dtype=torch.float64, device=dev)
-    hops_total = torch.zeros(B, M, dtype=torch.int64, device=dev)
-    for k, a in enumerate(dims):
-        s = src[..., k]
-        delta = torch.remainder(dst[..., k] - s, a)
-        hops = torch.minimum(delta, a - delta)
-        hops_total += hops
+    rs, rd, v = _tensor(rsrc, dev), _tensor(rdst, dev), _tensor(vol, dev)
+    step = score_chunk(dims, rsrc.shape[0])
+    cong, dil = [], []
+    for lo in range(0, B, step):
+        count_dispatch("score_candidates", dev.type)
+        c, d = _score_lanes(dims, _tensor(coords[lo:lo + step], dev), rs, rd, v, split_ties, double_link_on_2)
+        cong.append(c.cpu().numpy())
+        dil.append(d.cpu().numpy())
+    return np.concatenate(cong), np.concatenate(dil)
+
+
+def _score_lanes(
+    dims: Tuple[int, ...],
+    c: torch.Tensor,
+    rsrc: torch.Tensor,
+    rdst: torch.Tensor,
+    v: torch.Tensor,
+    split_ties: bool,
+    double_link_on_2: bool,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    B, n_ranks, D = c.shape
+    M = rsrc.shape[0]
+    cd = c.permute(2, 0, 1).contiguous()  # (D, B, n): each dimension's coordinates contiguous
+    lane = torch.arange(B, device=c.device).unsqueeze(1) * n_ranks
+    isrc, idst = (lane + rsrc).reshape(-1), (lane + rdst).reshape(-1)  # flat gathers are the fast ones
+
+    def gather(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+        return x.reshape(-1)[i].view(B, M)
+
+    vb = v.expand(B, M)
+    cong = torch.zeros(B, dtype=torch.float64, device=c.device)
+    hops_total = torch.zeros(B, M, dtype=torch.int64, device=c.device)
+    mixed = gather(_flat(dims, cd.permute(1, 2, 0)), isrc)
+    for k, (a, stride) in enumerate(zip(dims, _strides(dims))):
         if a == 1:
             continue
-        n_lines, _ = _line_strides(dims, k)
-        line = _ring_line(dims, k, src, dst)
-        tie = delta * 2 == a
-        fwd = delta <= a - delta
-        v1 = torch.where(tie, v * (0.5 if split_ties else 1.0), v).masked_fill(hops == 0, 0.0)
-        bstart = torch.remainder(s - hops + 1, a)
-        wp = v1.masked_fill(~fwd, 0.0)
-        wm = v1.masked_fill(fwd, 0.0)
-        if split_ties:
-            wm = wm + (v * 0.5).masked_fill(~tie, 0.0)
-        pos = torch.arange(a, device=dev)
-        covp = torch.remainder(pos - s.unsqueeze(-1), a) < hops.unsqueeze(-1)
-        covm = torch.remainder(pos - bstart.unsqueeze(-1), a) < hops.unsqueeze(-1)
-        rows = (lane * n_lines + line).view(-1)
-        peak = torch.zeros(B, dtype=torch.float64, device=dev)
-        for w, cov in ((wp, covp), (wm, covm)):
-            plane = torch.zeros(B * n_lines, a, dtype=torch.float64, device=dev)
-            plane.index_add_(0, rows, (w.unsqueeze(-1) * cov).view(B * M, a))
-            peak = torch.maximum(peak, plane.view(B, -1).amax(dim=1))
+        s, d = gather(cd[k], isrc), gather(cd[k], idst)
+        delta = torch.remainder(d - s, a)
+        hops_total += torch.minimum(delta, a - delta)
+        peak = _ring_loads(dims, k, mixed, s, d, vb, split_ties).view(B, -1).amax(dim=1)
         scale = 0.5 if (a == 2 and double_link_on_2) else 1.0
         cong = torch.maximum(cong, scale * peak)
+        mixed = mixed + (d - s) * stride
     dil = (v * hops_total.to(torch.float64)).sum(dim=1)
-    return cong.cpu().numpy(), dil.cpu().numpy()
+    return cong, dil
 
 
 # ---------------------------------------------------------------------------
 # (3) FFT contention cross-correlation.
 # ---------------------------------------------------------------------------
+def _plane_axes(t: torch.Tensor) -> Tuple[int, ...]:
+    return tuple(range(2, t.ndim))
+
+
 def contention_field(mask: np.ndarray, J: np.ndarray, device: DeviceLike = "cuda") -> np.ndarray:
     """Overlap of a job's load field ``J`` with the interference ``mask``
     at every torus offset, both ``(D, 2, *dims)``:
@@ -469,9 +543,29 @@ def contention_field(mask: np.ndarray, J: np.ndarray, device: DeviceLike = "cuda
     if m.shape != j.shape:
         raise ValueError(f"mask and load field shapes differ: {tuple(m.shape)} / {tuple(j.shape)}")
     count_dispatch("contention_field", dev.type)
-    axes = tuple(range(2, m.ndim))
+    axes = _plane_axes(m)
     corr = torch.fft.ifftn(torch.fft.fftn(m, dim=axes) * torch.fft.fftn(j, dim=axes).conj(), dim=axes)
     return corr.real.sum(dim=(0, 1)).clamp(min=0.0).cpu().numpy()
+
+
+def mask_fft(mask: torch.Tensor) -> torch.Tensor:
+    """The FFT of every (dimension, direction) plane of an interference
+    mask, once per placement search (its orientations share it)."""
+    return torch.fft.fftn(mask.to(torch.float64), dim=_plane_axes(mask))
+
+
+def snapped_contention(mask_ffts: torch.Tensor, J_int: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The contention field of an integer load field ``J_int`` ((D, 2,
+    *dims) int64) against a mask given by :func:`mask_fft`, rounded to
+    the integer it is (a sum of integers over a 0/1 mask), and the largest
+    distance of the FFT's value from it.  Both stay on the device: the
+    field is exact on either device, so the ranking built on it is too."""
+    count_dispatch("contention_field", J_int.device.type)
+    axes = _plane_axes(J_int)
+    j = torch.fft.fftn(J_int.to(torch.float64), dim=axes)
+    raw = torch.fft.ifftn(mask_ffts * j.conj(), dim=axes).real.sum(dim=(0, 1))
+    snapped = torch.round(raw)
+    return snapped, (raw - snapped).abs().max()
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,257 @@
+"""Torus fabric model (the port's copy of the torus part of
+``repro.network.fabric``): one class for Blue Gene/Q- and TPU-style tori.
+
+* Blue Gene/Q: a partition always keeps its wrap-around links and a
+  dimension of length 2 has two parallel links — ``TorusFabric.bgq``.
+* Single-link tori with per-dimension wrap flags — ``TorusFabric.tpu``.
+
+``link_bw`` (per link per direction) is a required argument here: the
+port carries no default link rate.  The HyperX fabric and the slice
+planning helpers are not ported.
+"""
+
+from __future__ import annotations
+
+import abc
+from dataclasses import dataclass
+from typing import Iterable, Iterator, Optional, Sequence, Tuple
+
+import numpy as np
+
+from repro_torch.network import geometry
+from repro_torch.network.geometry import Geometry, canonical, volume
+
+__all__ = ["Fabric", "LinkTable", "Torus", "TorusFabric"]
+
+
+@dataclass(frozen=True)
+class LinkTable:
+    """Explicit directed-link incidence of a fabric.
+
+    Parallel arrays: ``link[i]`` is the flat link id (an index into the
+    fabric's dense id space of ``n_slots`` slots — some may be unused,
+    e.g. length-1 torus dimensions), ``src[i]``/``dst[i]`` the endpoint
+    cells as flat C-order indices, and ``capacity[i]`` the link bandwidth
+    (parallel physical links fold into capacity).
+    """
+
+    link: np.ndarray  # (L,) int64 flat link ids, unique
+    src: np.ndarray  # (L,) int64 source cell (flat C-order)
+    dst: np.ndarray  # (L,) int64 destination cell (flat C-order)
+    capacity: np.ndarray  # (L,) float
+    n_slots: int  # size of the dense link-id space
+
+    def __len__(self) -> int:
+        return int(self.link.shape[0])
+
+    def dense_capacities(self) -> np.ndarray:
+        """Per-slot capacities, zero on unused slots."""
+        cap = np.zeros(self.n_slots, dtype=np.float64)
+        cap[self.link] = self.capacity
+        return cap
+
+    def neighbors_of(self, cell: int) -> np.ndarray:
+        """Sorted unique flat cell indices one link away from ``cell``."""
+        return np.unique(self.dst[self.src == int(cell)])
+
+
+class Fabric(abc.ABC):
+    """Abstract interconnect fabric: cells joined by capacitated links, on
+    a dense cell grid of per-dimension sizes ``dims``."""
+
+    dims: Tuple[int, ...]
+    link_bw: float
+
+    @property
+    def num_cells(self) -> int:
+        """Number of cells (allocation units) in the fabric."""
+        return volume(self.dims)
+
+    @property
+    def dim_sizes(self) -> Tuple[int, ...]:
+        """Per-dimension cell counts (the placement grid's shape)."""
+        return tuple(self.dims)
+
+    @abc.abstractmethod
+    def links(self) -> LinkTable:
+        """The explicit ``(link, src_cell, dst_cell, capacity)`` table."""
+
+    @abc.abstractmethod
+    def bisection_links(self) -> int:
+        """Internal bisection of the fabric in (unit-capacity) links."""
+
+    def neighbors(self, cell: int) -> np.ndarray:
+        """Flat cell indices adjacent to ``cell`` (sorted, unique)."""
+        return self.links().neighbors_of(cell)
+
+
+@dataclass(frozen=True)
+class TorusFabric(Fabric):
+    """A physical torus (or mesh) fabric: a machine or a partition.
+
+    ``dims`` are cell counts per dimension, ``wrap`` flags the wrap-around
+    link per dimension, ``link_bw`` is the rate per link per direction and
+    ``double_link_on_2`` selects the Blue Gene/Q convention (two parallel
+    links on a length-2 dimension) over a single link.
+
+    >>> bgq = TorusFabric.bgq((4, 4, 4), link_bw=1.0)
+    >>> bgq.num_chips, bgq.bisection_links()
+    (64, 32)
+    >>> chain = TorusFabric.tpu((4, 2), wrap=(True, False), link_bw=1.0)
+    >>> chain.bisection_links()  # unwrapped dim is cut once, not twice
+    4
+    """
+
+    dims: Tuple[int, ...]
+    wrap: Tuple[bool, ...]  # wrap-around link present per dimension
+    link_bw: float  # per link per direction
+    double_link_on_2: bool = False  # Blue Gene/Q: True
+
+    def __post_init__(self):
+        if len(self.dims) != len(self.wrap):
+            raise ValueError("dims and wrap must have equal length")
+
+    @classmethod
+    def bgq(cls, dims: Sequence[int], link_bw: float) -> "TorusFabric":
+        """Blue Gene/Q convention: fully wrapped, double links on a==2."""
+        d = tuple(int(a) for a in dims)
+        return cls(d, (True,) * len(d), link_bw, double_link_on_2=True)
+
+    @classmethod
+    def tpu(
+        cls, dims: Sequence[int], wrap: Optional[Sequence[bool]] = None, *, link_bw: float
+    ) -> "TorusFabric":
+        """Explicit wrap flags, single links on a==2."""
+        d = tuple(int(a) for a in dims)
+        w = tuple(bool(x) for x in wrap) if wrap is not None else (True,) * len(d)
+        return cls(d, w, link_bw, double_link_on_2=False)
+
+    @property
+    def num_chips(self) -> int:
+        """Number of allocation units (chips / midplanes) in the fabric."""
+        return volume(self.dims)
+
+    @property
+    def num_vertices(self) -> int:
+        """Alias of :attr:`num_chips` for graph-flavoured callers."""
+        return self.num_chips
+
+    @property
+    def is_fully_wrapped(self) -> bool:
+        """Whether every non-trivial dimension keeps its wrap-around link."""
+        return all(self.wrap[k] for k, a in enumerate(self.dims) if a > 1)
+
+    def links_across_dim(self, k: int) -> int:
+        """Links crossing a perpendicular plane of dimension k (per plane)."""
+        return self.num_chips // self.dims[k]
+
+    def bisection_links(self) -> int:
+        """Internal bisection in links: the exact edge-isoperimetric value
+        for fully-wrapped double-link fabrics, else the min-over-dimensions
+        halving cut (a wrapped dimension cut in two places, a chain in
+        one; a wrapped double-link length-2 dimension contributes 2)."""
+        if self.is_fully_wrapped and self.double_link_on_2:
+            return geometry.bisection_links(self.dims)
+        best = None
+        for k, a in enumerate(self.dims):
+            if a == 1:
+                continue
+            planes = 2 if (self.wrap[k] and a > 2) else 1
+            if a == 2 and self.wrap[k] and self.double_link_on_2:
+                planes = 2
+            cut = planes * self.links_across_dim(k)
+            best = cut if best is None else min(best, cut)
+        return 0 if best is None else best
+
+    def bisection_bandwidth(self) -> float:
+        """Rate across the bisection, both directions of each link."""
+        return 2.0 * self.bisection_links() * self.link_bw
+
+    def contains_cuboid(self, cuboid: Sequence[int]) -> bool:
+        """Whether the cuboid geometry fits this fabric (up to rotation)."""
+        return geometry.contains_cuboid(self.dims, cuboid)
+
+    def sub_cuboids(self, size: int) -> Iterator[Geometry]:
+        """All canonical cuboid geometries of ``size`` units that fit."""
+        return geometry.sub_cuboids(self.dims, size)
+
+    def links(self) -> LinkTable:
+        """Directed ring links, ids matching the flattened ``(D, 2, *dims)``
+        load-tensor layout of ``route_dor`` (slot ``(k * 2 + direction) *
+        N + cell``); a length-2 dimension's two parallel links (BG/Q) fold
+        into doubled capacity.  ``wrap`` affects bisection accounting, not
+        the routed incidence."""
+        dims = self.dims
+        n = self.num_cells
+        d = len(dims)
+        cells = np.arange(n, dtype=np.int64)
+        coords = np.stack(np.unravel_index(cells, dims), axis=1) if d else cells[:, None]
+        link, src, dst, cap = [], [], [], []
+        for k, a in enumerate(dims):
+            if a <= 1:
+                continue
+            c = 2.0 * self.link_bw if (a == 2 and self.double_link_on_2) else self.link_bw
+            for direction, step in ((0, 1), (1, -1)):
+                nb = coords.copy()
+                nb[:, k] = (nb[:, k] + step) % a
+                link.append((k * 2 + direction) * n + cells)
+                src.append(cells)
+                dst.append(np.ravel_multi_index(tuple(nb.T), dims))
+                cap.append(np.full(n, c))
+        empty = np.zeros(0, dtype=np.int64)
+        return LinkTable(
+            link=np.concatenate(link) if link else empty,
+            src=np.concatenate(src) if src else empty.copy(),
+            dst=np.concatenate(dst) if dst else empty.copy(),
+            capacity=np.concatenate(cap) if cap else np.zeros(0),
+            n_slots=2 * d * n,
+        )
+
+
+@dataclass(frozen=True)
+class Torus:
+    """A fully-wrapped D-dimensional torus graph (the paper's object),
+    with Blue Gene/Q double-link edge counting."""
+
+    dims: Geometry
+
+    def __init__(self, dims: Iterable[int]):
+        object.__setattr__(self, "dims", canonical(dims))
+
+    @property
+    def D(self) -> int:
+        return len(self.dims)
+
+    @property
+    def num_vertices(self) -> int:
+        return volume(self.dims)
+
+    @property
+    def degree(self) -> int:
+        return geometry.degree(self.dims)
+
+    @property
+    def num_edges(self) -> int:
+        return geometry.num_edges(self.dims)
+
+    def fabric(self, link_bw: float) -> TorusFabric:
+        """The equivalent bandwidth-aware fabric (BG/Q convention)."""
+        return TorusFabric.bgq(self.dims, link_bw)
+
+    def contains_cuboid(self, cuboid: Sequence[int]) -> bool:
+        return geometry.contains_cuboid(self.dims, cuboid)
+
+    def cuboid_cut(self, cuboid: Sequence[int]) -> int:
+        return geometry.cuboid_cut(self.dims, cuboid)
+
+    def cuboid_cut_aligned(self, sides: Sequence[int]) -> int:
+        return geometry.cuboid_cut_aligned(self.dims, sides)
+
+    def cuboid_interior(self, cuboid: Sequence[int]) -> int:
+        return geometry.cuboid_interior(self.dims, cuboid)
+
+    def sub_cuboids(self, size: int) -> Iterator[Geometry]:
+        return geometry.sub_cuboids(self.dims, size)
+
+    def bisection_links(self) -> int:
+        return geometry.bisection_links(self.dims)

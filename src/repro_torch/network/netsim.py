@@ -11,7 +11,8 @@ advances time from one completion to the next, as the JAX package's
 :func:`repro_torch.network.backend.drain` on ``device``.
 
 Path building (tie expansion and link enumeration) is host-side NumPy,
-copied from the JAX package.  Not ported: the minimal-adaptive router
+copied from the JAX package, as is the paper's validation experiment
+(:func:`validate_prediction`).  Not ported: the minimal-adaptive router
 (``adaptive_paths``), the HyperX router (``fabric_paths``: HyperX paths
 built by the JAX package drain here through
 :func:`repro_torch.interop.flow_paths_from_numpy`) and the utilization
@@ -32,13 +33,17 @@ from repro_torch.network.routing import max_link_load
 
 Traffic = Tuple[np.ndarray, np.ndarray, np.ndarray]
 
+_EPS = 1e-12
+
 __all__ = [
     "FlowPaths",
     "FlowSimResult",
+    "PredictionValidation",
     "dor_paths",
     "link_capacities",
     "simulate_flows",
     "simulate_traffic",
+    "validate_prediction",
 ]
 
 
@@ -379,3 +384,66 @@ def simulate_traffic(
         record_utilization=record_utilization,
         device=device,
     )
+
+
+# ---------------------------------------------------------------------------
+# The paper's validation experiment as an API.
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class PredictionValidation:
+    """Static prediction vs simulated makespan for one pattern.
+
+    ``predicted_time`` is ``max_link_load / link_bw``; ``simulated_time``
+    the flow simulator's makespan.  For steady (translation-invariant)
+    patterns the two coincide; no pattern can finish faster.
+    """
+
+    dims: Tuple[int, ...]
+    predicted_time: float
+    simulated_time: float
+    rtol: float
+
+    @property
+    def ratio(self) -> float:
+        """Simulated over predicted (1.0 when both are zero)."""
+        if self.predicted_time <= 0.0:
+            return 1.0
+        return self.simulated_time / self.predicted_time
+
+    @property
+    def matched(self) -> bool:
+        """Whether simulation confirms the prediction within ``rtol``."""
+        return abs(self.simulated_time - self.predicted_time) <= (
+            self.rtol * max(self.predicted_time, _EPS)
+        )
+
+    @property
+    def bounded(self) -> bool:
+        """Whether the simulation respects the prediction as a lower bound
+        (it always should; False flags a simulator bug)."""
+        return self.simulated_time >= self.predicted_time * (1.0 - self.rtol) - _EPS
+
+
+def validate_prediction(
+    dims: Sequence[int],
+    traffic: Traffic,
+    link_bw: float = 1.0,
+    split_ties: bool = True,
+    double_link_on_2: bool = True,
+    rtol: float = 1e-6,
+    device: DeviceLike = "cuda",
+) -> PredictionValidation:
+    """Run the paper's validation experiment for one pattern: route it with
+    DOR, drain it on ``device`` and package the static prediction beside
+    the simulated makespan.
+
+    >>> from repro_torch.network.patterns import bisection_pairing
+    >>> v = validate_prediction((4, 4), bisection_pairing((4, 4)), device="cpu")
+    >>> v.predicted_time, v.simulated_time, v.matched
+    (1.0, 1.0, True)
+    """
+    dims = tuple(int(a) for a in dims)
+    paths = dor_paths(dims, traffic[0], traffic[1], traffic[2], split_ties=split_ties)
+    predicted = paths.max_link_load(double_link_on_2) / link_bw
+    res = simulate_flows(paths, link_bw=link_bw, double_link_on_2=double_link_on_2, device=device)
+    return PredictionValidation(dims=dims, predicted_time=predicted, simulated_time=res.makespan, rtol=rtol)

@@ -7,17 +7,40 @@ the per-directed-link load tensor of a message batch, computed by
 ring distance of exactly half the ring) split their volume across both
 directions with ``split_ties=True``; a dimension of length 2 has two
 parallel links under the Blue Gene/Q convention, which
-:func:`max_link_load` applies at query time.
+:func:`max_link_load` applies at query time.  The closed forms for
+translation-invariant patterns (:func:`uniform_offset_max_load`,
+:func:`all_to_all_max_load`) and the pairing-benchmark prediction are
+host arithmetic, copied from the JAX package.  The HyperX routers are not
+ported.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from dataclasses import dataclass, field
+from typing import Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from repro_torch.device import DeviceLike
 from repro_torch.network.backend import route_loads
+from repro_torch.network.fabric import Torus, TorusFabric
+from repro_torch.network.geometry import canonical, volume
+
+Coord = Tuple[int, ...]
+
+__all__ = [
+    "Coord",
+    "LinkLoads",
+    "PairingPrediction",
+    "all_to_all_max_load",
+    "max_link_load",
+    "pairing_speedup",
+    "predict_pairing_time",
+    "route_dor",
+    "route_pattern",
+    "simulate_pattern",
+    "uniform_offset_max_load",
+]
 
 
 def route_dor(
@@ -39,7 +62,7 @@ def max_link_load(dims: Sequence[int], loads: np.ndarray, double_link_on_2: bool
 
     Under the Blue Gene/Q convention a dimension of length 2 has two parallel
     links per vertex pair and traffic balances across them, halving the
-    effective load; TPU-style fabrics pass ``double_link_on_2=False``.
+    effective load; single-link fabrics pass ``double_link_on_2=False``.
     """
     dims = tuple(dims)
     m = 0.0
@@ -49,3 +72,218 @@ def max_link_load(dims: Sequence[int], loads: np.ndarray, double_link_on_2: bool
         scale = 0.5 if (a == 2 and double_link_on_2) else 1.0
         m = max(m, scale * float(loads[k].max()))
     return m
+
+
+@dataclass
+class LinkLoads:
+    """Directed-link load accounting on a torus under DOR routing: paths
+    are buffered and routed in one :func:`route_dor` call on ``device`` at
+    the first query."""
+
+    dims: Tuple[int, ...]
+    split_ties: bool = True
+    double_link_on_2: bool = True
+    device: DeviceLike = "cuda"
+    _src: List[np.ndarray] = field(default_factory=list, repr=False)
+    _dst: List[np.ndarray] = field(default_factory=list, repr=False)
+    _vol: List[np.ndarray] = field(default_factory=list, repr=False)
+    _loads: Optional[np.ndarray] = field(default=None, repr=False)
+
+    def __post_init__(self):
+        self.dims = tuple(int(a) for a in self.dims)
+
+    def add_path(self, src: Coord, dst: Coord, vol: float) -> None:
+        """Route vol from src to dst (buffered; computed lazily)."""
+        self.add_batch([src], [dst], [vol])
+
+    def add_batch(self, src: Sequence[Sequence[int]], dst: Sequence[Sequence[int]], vol) -> None:
+        src = np.atleast_2d(np.asarray(src, dtype=np.int64))
+        dst = np.atleast_2d(np.asarray(dst, dtype=np.int64))
+        vol = np.broadcast_to(np.asarray(vol, dtype=np.float64), (src.shape[0],))
+        self._src.append(src)
+        self._dst.append(dst)
+        self._vol.append(np.array(vol))
+        self._loads = None
+
+    def _compute(self) -> np.ndarray:
+        if self._loads is None:
+            if self._src:
+                self._loads = route_dor(
+                    self.dims,
+                    np.concatenate(self._src),
+                    np.concatenate(self._dst),
+                    np.concatenate(self._vol),
+                    split_ties=self.split_ties,
+                    device=self.device,
+                )
+            else:
+                self._loads = np.zeros((len(self.dims), 2) + self.dims)
+        return self._loads
+
+    @property
+    def loads(self) -> List[List[np.ndarray]]:
+        """``loads[k][d]`` with the torus shape: snapshots of the lazily
+        computed tensor (re-read after adding traffic)."""
+        arr = self._compute()
+        return [[arr[k, d] for d in range(2)] for k in range(len(self.dims))]
+
+    def load_array(self) -> np.ndarray:
+        """The (D, 2, *dims) load tensor."""
+        return self._compute()
+
+    def max_load(self) -> float:
+        """Maximum load on any directed physical link (double links halve)."""
+        return max_link_load(self.dims, self._compute(), self.double_link_on_2)
+
+    def total_hop_volume(self) -> float:
+        return float(self._compute().sum())
+
+
+def simulate_pattern(
+    dims: Sequence[int],
+    traffic: Iterable[Tuple[Coord, Coord, float]],
+    split_ties: bool = True,
+    device: DeviceLike = "cuda",
+) -> LinkLoads:
+    """Route explicit (src, dst, vol) traffic; accepts any iterable of triples."""
+    ll = LinkLoads(tuple(dims), split_ties=split_ties, device=device)
+    triples = list(traffic)
+    if triples:
+        srcs, dsts, vols = zip(*triples)
+        ll.add_batch(np.asarray(srcs), np.asarray(dsts), np.asarray(vols, dtype=np.float64))
+    return ll
+
+
+# ---------------------------------------------------------------------------
+# Closed forms for translation-invariant patterns.
+# ---------------------------------------------------------------------------
+def uniform_offset_max_load(
+    dims: Sequence[int],
+    offset: Sequence[int],
+    vol: float = 1.0,
+    split_ties: bool = True,
+    double_link_on_2: bool = True,
+) -> float:
+    """Max directed-link load when every vertex sends vol to vertex+offset:
+    an offset of delta on a ring of length a loads each link of the chosen
+    direction with ``vol * min(delta, a-delta)`` (halved for a split tie,
+    and again on a Blue Gene/Q double link)."""
+    m = 0.0
+    for a, off in zip(dims, offset):
+        if a == 1:
+            continue
+        delta = off % a
+        if delta == 0:
+            continue
+        d = min(delta, a - delta)
+        load = vol * d
+        if 2 * d == a and split_ties:
+            load /= 2.0
+        if a == 2 and double_link_on_2:
+            load /= 2.0  # double link
+        m = max(m, load)
+    return m
+
+
+def all_to_all_max_load(
+    dims: Sequence[int],
+    vol_per_pair: float = 1.0,
+    split_ties: bool = True,
+    double_link_on_2: bool = True,
+) -> float:
+    """Max link load of a full all-to-all (every ordered pair exchanges
+    vol_per_pair) under DOR: each of the N/a_k dimension-k rings carries N
+    messages per ordered ring offset, and the per-direction hop volumes
+    are counted explicitly (the antipodal tie split or sent forward)."""
+    dims = tuple(dims)
+    n = volume(dims)
+    worst = 0.0
+    for k, a in enumerate(dims):
+        if a == 1:
+            continue
+        fwd_hop_vol = 0.0  # per-ring hop volume in the + direction
+        bwd_hop_vol = 0.0
+        for delta in range(1, a):
+            d = min(delta, a - delta)
+            if 2 * delta == a:  # antipodal tie
+                if split_ties:
+                    fwd_hop_vol += n * d / 2.0
+                    bwd_hop_vol += n * d / 2.0
+                else:
+                    fwd_hop_vol += n * d
+            elif delta < a - delta:
+                fwd_hop_vol += n * d
+            else:
+                bwd_hop_vol += n * d
+        load = max(fwd_hop_vol, bwd_hop_vol) * vol_per_pair / a
+        if a == 2 and double_link_on_2:
+            load /= 2.0
+        worst = max(worst, load)
+    return worst
+
+
+# ---------------------------------------------------------------------------
+# The paper's bisection-pairing benchmark.
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class PairingPrediction:
+    dims: Tuple[int, ...]
+    max_link_load: float  # per unit message volume
+    time_per_volume: float  # time per unit of per-pair message volume
+    bisection_links: int
+
+
+def predict_pairing_time(
+    dims: Sequence[int],
+    message_bytes: float,
+    link_bw_bytes_s: float,
+    split_ties: bool = True,
+    double_link_on_2: bool = True,
+) -> PairingPrediction:
+    """Predicted completion time of one round of the pairing benchmark."""
+    from repro_torch.network.patterns import furthest_offset
+
+    dims = canonical(dims)
+    off = furthest_offset(dims)
+    load = uniform_offset_max_load(dims, off, 1.0, split_ties=split_ties, double_link_on_2=double_link_on_2)
+    return PairingPrediction(
+        dims=dims,
+        max_link_load=load,
+        time_per_volume=load / link_bw_bytes_s,
+        bisection_links=Torus(dims).bisection_links(),
+    )
+
+
+def pairing_speedup(dims_a: Sequence[int], dims_b: Sequence[int], split_ties: bool = True) -> float:
+    """Predicted execution-time ratio T(a) / T(b) of the pairing benchmark
+    between two equal-size partition geometries (paper Figures 3-4)."""
+    a = predict_pairing_time(dims_a, 1.0, 1.0, split_ties)
+    b = predict_pairing_time(dims_b, 1.0, 1.0, split_ties)
+    return a.max_link_load / b.max_link_load
+
+
+def route_pattern(
+    fabric,
+    src: np.ndarray,
+    dst: np.ndarray,
+    vol,
+    *,
+    mode: Optional[str] = None,
+    split_ties: bool = True,
+    device: DeviceLike = "cuda",
+) -> np.ndarray:
+    """Route a message batch on a torus (a :class:`TorusFabric`, a
+    :class:`Torus` or plain dims): :func:`route_dor`'s ``(D, 2, *dims)``
+    tensor.  ``mode`` must be ``"dor"`` or None; the HyperX branch of the
+    JAX package is not ported."""
+    if hasattr(fabric, "link_multiplicity"):
+        raise NotImplementedError(
+            "route_pattern on a HyperXFabric is not ported (ROADMAP Queue 1, the HyperX slice)"
+        )
+    dims = fabric.dims if isinstance(fabric, (TorusFabric, Torus)) else tuple(int(a) for a in fabric)
+    if mode not in (None, "dor"):
+        raise ValueError(
+            f"torus route_pattern supports mode='dor' only (got {mode!r}); "
+            f"adaptive torus routing lives in the netsim module"
+        )
+    return route_dor(dims, src, dst, vol, split_ties=split_ties, device=device)

@@ -6,6 +6,7 @@ from .fault_tolerance import (
     StragglerTracker,
     SupervisorReport,
     TrainingSupervisor,
+    failure_cells,
     plan_mesh,
 )
 
@@ -15,5 +16,6 @@ __all__ = [
     "StragglerTracker",
     "SupervisorReport",
     "TrainingSupervisor",
+    "failure_cells",
     "plan_mesh",
 ]

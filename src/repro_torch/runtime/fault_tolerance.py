@@ -1,7 +1,5 @@
 """Fault tolerance runtime: failure detection, restart, elastic rescale,
-straggler mitigation (the port's own copy of ``repro.runtime.fault_tolerance``,
-less ``failure_cells``, the glue to the network scheduler the port does not
-have yet).
+straggler mitigation (the port's own copy of ``repro.runtime.fault_tolerance``).
 
 On a real multi-pod deployment these hooks sit in the coordinator process
 (torch.distributed); here the mechanisms are implemented against an injectable
@@ -63,6 +61,18 @@ class HeartbeatMonitor:
     @property
     def alive(self) -> List[str]:
         return [w for w in self.last_seen if w not in self.failed]
+
+
+def failure_cells(
+    monitor: HeartbeatMonitor, worker_cells: Dict[str, Tuple[int, ...]]
+) -> List[Tuple[int, ...]]:
+    """Torus cells of the workers ``monitor.check()`` newly declares dead:
+    the glue between heartbeat detection and the network scheduler
+    (:func:`repro_torch.network.scheduler.apply_monitor_failures`), which
+    evacuates and requeues the jobs on them and keeps the cells out of the
+    free pool until a ``Reclaim`` repairs them.  Workers without a cell
+    assignment (e.g. spares) are skipped."""
+    return [tuple(worker_cells[w]) for w in monitor.check() if w in worker_cells]
 
 
 # ---------------------------------------------------------------------------

@@ -546,3 +546,80 @@ def test_network_cut_table_on_the_card_is_int64_identical(cuda, dims):
         card = net.cut_table(dims, mp * unit, device="cuda")
         cpu = net.cut_table(dims, mp * unit, device="cpu")
         assert card.items() == cpu.items() and card.cuts.dtype == np.int64
+
+
+# ---------------------------------------------------------------------------
+# The allocation engines (placement search, scheduler, rank mapping): the
+# card against the port's CPU path on the same inputs.
+# ---------------------------------------------------------------------------
+def _record(e):
+    placement = None if e.placement is None else dataclasses.astuple(e.placement)
+    request = None if e.request is None else dataclasses.astuple(e.request)
+    return (e.time, e.kind, e.seq, e.job_id, e.cells, request, placement, e.priority, e.reason, e.source)
+
+
+@pytest.mark.parametrize("dims, geometry", [((16, 8, 8), (6, 4, 4)), ((12, 8, 8), (8, 8, 8)), ((7, 2, 2, 2), (4, 2, 1, 1))])
+def test_allocation_scored_placement_on_the_card_matches_cpu(cuda, dims, geometry):
+    rng = np.random.default_rng(3)
+    machines = {dev: net.MachineState(dims, device=dev) for dev in ("cuda", "cpu")}
+    for jid in range(12):
+        g = tuple(int(rng.integers(1, min(4, a) + 1)) for a in dims)
+        placed = {dev: m.allocate_scored(jid, g) for dev, m in machines.items()}
+        assert placed["cuda"] == placed["cpu"]
+    assert np.array_equal(machines["cuda"].traffic_loads(), machines["cpu"].traffic_loads())
+    grid = machines["cpu"].grid.numpy()
+    bg = machines["cpu"].traffic_loads()
+    card = net.best_placement(grid, geometry, bg, device="cuda")
+    assert card == net.best_placement(grid, geometry, bg, device="cpu")
+    assert net.first_fit(grid, geometry, device="cuda") == net.first_fit(grid, geometry, device="cpu")
+
+
+def test_allocation_scheduler_scenario_on_the_card_matches_cpu(cuda):
+    scenario = net.generate_scenario((16, 16, 16), 80, seed=1, burst_gap=30.0, mean_duration=80.0,
+                                     failure_rate=0.002, repair_delay=150.0)
+    for policy in (net.ContentionScoredPolicy, net.IsoperimetricPolicy):
+        card = net.run_scenario(scenario, policy(), backfill=True, device="cuda")
+        cpu = net.run_scenario(scenario, policy(), backfill=True, device="cpu")
+        assert [_record(e) for e in card.log] == [_record(e) for e in cpu.log]
+        assert card.machine.grid.device.type == "cuda"
+
+
+def test_allocation_queue_with_simulated_contention_on_the_card(cuda):
+    rng = np.random.default_rng(4)
+    jobs = [net.JobRequest(i, int(rng.choice([2, 4, 6, 8, 12])), duration=float(rng.uniform(1, 9)),
+                           arrival=float(i)) for i in range(16)]
+    for pattern in (None, "halo"):
+        res = {dev: net.simulate_queue((6, 4, 2), jobs, net.ElongatedPolicy(), contention="simulated",
+                                       mapping_pattern=pattern, device=dev) for dev in ("cuda", "cpu")}
+        for a, b in zip(res["cuda"].jobs, res["cpu"].jobs):
+            assert a.placement == b.placement and (a.start, a.end) == (b.start, b.end)
+            assert a.comm_lower_bound == b.comm_lower_bound
+            np.testing.assert_allclose(a.simulated_comm_time, b.simulated_comm_time, rtol=1e-9, atol=1e-12)
+
+
+def test_allocation_map_ranks_chunks_on_the_card(cuda, monkeypatch):
+    dims, job = (16, 16, 12, 8, 2), (4, 4, 4, 4, 2)
+    orders = list(net.axis_permutation_orders(job))[:96]
+    from repro_torch.network import backend, mapping
+
+    coords = np.stack([mapping.axis_order_coords(dims, job, (1, 2, 3, 4, 0), p, r) for p, r in orders])
+    traffic = net.pattern_traffic(job, "halo")
+    whole = backend.score_candidates(dims, coords, traffic, device="cuda")
+    cpu = backend.score_candidates(dims, coords, traffic, device="cpu")
+    monkeypatch.setattr(backend, "SCORE_BUDGET_BYTES", 1 << 20)
+    assert backend.score_chunk(dims, traffic[0].shape[0]) < len(coords)
+    chunked = backend.score_candidates(dims, coords, traffic, device="cuda")
+    for a, b, c in zip(whole, chunked, cpu):
+        assert np.array_equal(a, b) and np.array_equal(a, c)
+    card = net.map_ranks(dims, job, (1, 2, 3, 4, 0), pattern="pairing", device="cuda")
+    ref = net.map_ranks(dims, job, (1, 2, 3, 4, 0), pattern="pairing", device="cpu")
+    assert (card.strategy, card.score) == (ref.strategy, ref.score)
+    assert np.array_equal(card.coords, ref.coords) and np.array_equal(card.loads, ref.loads)
+
+
+def test_allocation_advisor_on_the_card_matches_cpu(cuda):
+    table = {4: (4, 1, 1, 1), 8: (4, 2, 1, 1), 24: (4, 3, 2, 1)}
+    card = net.advise_policy_table((4, 4, 3, 2), table, unit_node_dims=(4, 4, 4, 4, 2), simulate=True, device="cuda")
+    cpu = net.advise_policy_table((4, 4, 3, 2), table, unit_node_dims=(4, 4, 4, 4, 2), simulate=True, device="cpu")
+    assert card == cpu
+    assert [a.predicted_speedup for a in card] == [a.simulated_speedup for a in card] == [2.0, 2.0, 4.0 / 3.0]

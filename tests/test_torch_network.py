@@ -500,6 +500,36 @@ def test_chip_smoke_network_tables_match_the_paper():
         assert rn.uniform_offset_max_load(dims, rn.furthest_offset(dims)) == makespan
 
 
+def test_chip_smoke_allocation_cases_match_the_repo():
+    """chip_smoke.py's phase 7 carries its cases as literals: a BG/Q
+    midplane, BENCH_scheduler.json's largest scenario (with the bench's
+    own stream), sizes from Mira's scheduler table, the paper's Table 1
+    speedups from the JAX advisor, and Mira's node torus for the mapping."""
+    import inspect
+    import json
+
+    from benchmarks import bench_scheduler
+
+    assert chip_smoke.MIDPLANE_NODES == bgq.MIDPLANE_DIMS
+    sc = chip_smoke.SCHEDULER_SCENARIO
+    rows = json.loads((Path(__file__).resolve().parents[1] / "BENCH_scheduler.json").read_text())["rows"]
+    largest = max((r for r in rows if "scenario_jobs" in r), key=lambda r: r["grid"][0])
+    assert list(sc["machine"]) == largest["grid"] and sc["jobs"] == largest["scenario_jobs"]
+    source = inspect.getsource(bench_scheduler)
+    assert f"_service_throughput({sc['machine']}, {sc['jobs']}, seed={sc['seed']})" in source
+    for key in ("burst_gap", "mean_duration", "failure_rate", "repair_delay"):
+        assert f"{key}={sc[key]}," in source
+    assert set(chip_smoke.QUEUE_SIZES) <= set(bgq.MIRA_SCHEDULER_PARTITIONS)
+    for mp, ratio in chip_smoke.TABLE1_RATIOS.items():
+        advice = rn.advise_partition(bgq.MIRA.midplane_dims, mp, bgq.MIRA_SCHEDULER_PARTITIONS[mp],
+                                     unit_node_dims=bgq.MIDPLANE_DIMS)
+        assert advice.predicted_speedup == ratio
+        assert advice.optimal_geometry == bgq.MIRA_PROPOSED_PARTITIONS[mp]
+    machine, job = chip_smoke.MAP_JOB
+    assert machine == bgq.MIRA.node_dims and job == bgq.node_dims_of_midplane_geometry((2, 2, 2, 2))
+    assert chip_smoke.ADVISOR_SIMULATE_NODES == 16 * bgq.MIDPLANE_NODES
+
+
 ENTRY_POINTS = {
     "route_dor": lambda: tn.route_dor((4, 4), [[0, 0]], [[2, 1]], 1.0),
     "route_dor_empty": lambda: tn.route_dor((4, 4), np.zeros((0, 2)), np.zeros((0, 2)), 1.0),
