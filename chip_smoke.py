@@ -129,6 +129,17 @@ Phases, in order; any failure raises and the script exits non-zero:
    scored in chunks on the card, the same strategy and score on both.
    Every allocation pass must have been dispatched on the card, and an
    ``allocation`` JSON line holds the numbers.
+8. The fleet planner (``repro_torch.launch.planner``; no kernel of its
+   own): mixtral-8x7b, qwen1.5-110b and nemotron-4-340b planned on Mira at
+   16 midplanes (train_4k, torus mode, 2 GB/s links) under the H100
+   profile, on the card and through the CPU path, the ranked rows bit-equal
+   and each plan's (geometry, rule, bisection efficiency, rows) as
+   ``H100_MIRA_PLANS`` pins them; fsdp over all 16 midplanes must rank
+   ``advise_partition``'s certified (2, 2, 2, 2) first, and the worst row
+   must cost at least 1.3x the best.  It prints each table, wall times on
+   both, the card's idle share and the ``planner.price`` span count, runs
+   ``--plan-chips 16 --plan-pod mira`` through ``serve.main`` and
+   ``train.main``, and writes a ``planner`` JSON line.
 
 The line before the last is a JSON object with each kernel's launches on the
 main path, error, times and bound; the last line names the device.  With no
@@ -255,6 +266,21 @@ SCHEDULER_SCENARIO = dict(machine=(32, 32, 32), jobs=120, seed=2, burst_gap=30.0
 # (c): a seeded stream of midplane jobs on Mira, sizes from its scheduler table.
 QUEUE_JOBS, QUEUE_SIZES, QUEUE_SEED = 24, (1, 2, 4, 8, 16, 24, 32), 7
 MAP_JOB = ((16, 16, 12, 8, 2), (8, 8, 8, 8, 2))  # (d): (machine, oriented job), halo traffic
+
+# Phase 8: the fleet planner on Mira at 16 midplanes (train_4k, torus mode,
+# 2 GB/s links, the H100 profile), tests/test_golden_tables.py's models.
+PLAN_ARCHS = ["mixtral-8x7b", "qwen1.5-110b", "nemotron-4-340b"]
+PLAN_MIDPLANES = 16
+# What the H100 profile gives there, arch -> (best geometry, best (d, f, t,
+# e), bisection efficiency, table rows): the port's CPU path, pinned by
+# tests/test_torch_planner.py::H100_MIRA_PLANS.  80 GB admits mixtral's and
+# qwen's data 4 x fsdp 4 rule, which wins on the (4, 4, 1, 1) partition.
+H100_MIRA_PLANS = {
+    "mixtral-8x7b": ((4, 4, 1, 1), (4, 4, 1, 1), 0.5, 73),
+    "qwen1.5-110b": ((4, 4, 1, 1), (4, 4, 1, 1), 0.5, 29),
+    "nemotron-4-340b": ((2, 2, 2, 2), (1, 16, 1, 1), 1.0, 13),
+}
+AVOIDABLE_FLOOR = 1.3  # the paper's avoidable-contention floor: worst / best step time
 
 
 def serve_args(arch: str):
@@ -1728,6 +1754,96 @@ def phase7_allocation(smi: str, card: str = "cuda") -> dict:
     return out
 
 
+def plan_rows(plan) -> list:
+    """A plan's ranked rows, each ``PlanCandidate.row()`` with its drained
+    slowdown."""
+    return [c.row() + (c.simulated_slowdown,) for c in plan.table]
+
+
+def phase8_planner(smi: str, card: str = "cuda") -> dict:
+    """Phase 8: the fleet planner on ``card`` against the port's CPU path,
+    and ``--plan-chips`` through both launchers.  Returns the numbers of
+    the ``planner`` line."""
+    from repro_torch.core import bgq
+    from repro_torch.launch import planner, serve, train
+    from repro_torch.network import advise_partition
+    from repro_torch.obs import DISPATCHES, TRACER
+
+    DISPATCHES.clear()
+    kw = dict(pod=planner.bgq_pod("mira"), shape="train_4k", wrap_mode="torus", unit_node_dims=bgq.MIDPLANE_DIMS)
+    advice = advise_partition(MIDPLANE_TORI["Mira"], PLAN_MIDPLANES, (2, 2, 2, 2), unit_node_dims=MIDPLANE_NODES,
+                              device=card)
+    if advice.optimal_geometry != (2, 2, 2, 2) or advice.current_bisection != advice.optimal_bisection:
+        raise RuntimeError(f"phase 8: advise_partition's optimum on Mira at 16 midplanes is {advice}")
+    out = {"pod": "mira", "midplanes": PLAN_MIDPLANES, "shape": "train_4k", "plans": []}
+    for arch in PLAN_ARCHS:
+        def plan(dev):
+            return planner.plan_model(arch, PLAN_MIDPLANES, device=dev, **kw)
+
+        got, prof = profile_idle_share(lambda: plan(card))
+        want, t_cpu = wall_s(lambda: plan("cpu"))
+        TRACER.enable(clear=True)
+        try:
+            traced = plan(card)
+            spans = sum(1 for e in TRACER.events() if e["name"] == "planner.price")
+        finally:
+            TRACER.disable()
+            TRACER.clear()
+        if plan_rows(got) != plan_rows(want) or plan_rows(traced) != plan_rows(want):
+            raise RuntimeError(f"phase 8: {arch}: the card's rows differ from the CPU path's")
+        best, worst = got.table[0], got.table[-1]
+        ratio = worst.step_time / best.step_time
+        summary = (got.geometry, best.axis_sizes, got.bisection_efficiency, len(got.table))
+        if summary != H100_MIRA_PLANS[arch]:
+            raise RuntimeError(f"phase 8: {arch}: (geometry, axes, bisection efficiency, rows) {summary}, "
+                               f"expected {H100_MIRA_PLANS[arch]}")
+        fsdp16 = next(c for c in got.table if c.axis_sizes == (1, 16, 1, 1))
+        if fsdp16.geometry != advice.optimal_geometry or fsdp16.bisection_efficiency != 1.0:
+            raise RuntimeError(f"phase 8: {arch}: fsdp over 16 midplanes ranks {fsdp16.geometry} first")
+        if ratio < AVOIDABLE_FLOOR:
+            raise RuntimeError(f"phase 8: {arch}: worst / best step time {ratio!r} < {AVOIDABLE_FLOOR}")
+        row = {"arch": arch, "geometry": list(got.geometry), "axes": list(best.axis_sizes),
+               "mapping": best.mapping_strategy, "bisection_efficiency": got.bisection_efficiency,
+               "rows": len(got.table), "step_s": best.step_time, "comm_s": best.comm_time,
+               "compute_s": best.compute_time, "memory_s": best.memory_time, "worst_over_best": ratio,
+               "fsdp16_step_s": fsdp16.step_time, "price_spans": spans, "card_s": prof["wall_ms"] / 1e3,
+               "cpu_s": t_cpu, "profile": prof}
+        out["plans"].append(row)
+        print(planner.format_table(got))
+        print(f"phase 8: {arch} on Mira, {PLAN_MIDPLANES} midplanes, train_4k, H100 profile: {got.geometry} "
+              f"{best.axis_sizes} {best.mapping_strategy}, bisection efficiency {got.bisection_efficiency!r}, "
+              f"step {best.step_time!r} s, comm {best.comm_time!r} s, worst / best {ratio!r}, {len(got.table)} "
+              f"rows equal on the card and the CPU; fsdp 16 ranks {fsdp16.geometry} first at "
+              f"{fsdp16.step_time!r} s; {spans} planner.price spans; card {prof['wall_ms'] / 1e3:.3f} s "
+              f"(device busy {prof['device_busy_ms']:.3f} ms, idle share {prof['device_idle_share']:.4f}, "
+              f"{prof['kernels']} kernel names), CPU {t_cpu:.3f} s", flush=True)
+
+    # the launchers: --plan-chips prints the table and returns the plan, building no model
+    out["cli"] = {}
+    for name, module, shape in (("serve", serve, "decode_32k"), ("train", train, "train_4k")):
+        argv = ["--arch", PLAN_ARCHS[0], "--plan-chips", str(PLAN_MIDPLANES), "--plan-pod", "mira"]
+        plan, t_card = wall_s(lambda: module.main(argv + ["--device", card]))
+        ref = planner.plan_model(PLAN_ARCHS[0], PLAN_MIDPLANES, simulate_top_k=1, device="cpu",
+                                 **dict(kw, shape=shape))
+        drained, want = plan.best.simulated_slowdown, ref.best.simulated_slowdown
+        if (plan.shape != shape or [c.row() for c in plan.table] != [c.row() for c in ref.table]
+                or drained < 1.0 or abs(drained - want) > 1e-9 * want):
+            raise RuntimeError(f"phase 8: {name} --plan-chips: {plan.shape} plan differs from the CPU path's")
+        out["cli"][name] = {"shape": shape, "geometry": list(plan.geometry), "axes": list(plan.best.axis_sizes),
+                            "step_s": plan.step_time, "simulated_slowdown": plan.best.simulated_slowdown,
+                            "card_s": t_card}
+        print(f"phase 8: {name}.main --plan-chips {PLAN_MIDPLANES} --plan-pod mira: {shape} {plan.geometry} "
+              f"{plan.best.axis_sizes}, drained slowdown {plan.best.simulated_slowdown!r}, {t_card:.3f} s",
+              flush=True)
+
+    out["dispatches"] = {f"{name}/{dev}": n for (name, dev), n in sorted(DISPATCHES.items())}
+    missing = [name for name in ("cut_scores", "score_candidates", "drain") if not DISPATCHES[(name, card)]]
+    if missing:
+        raise RuntimeError(f"phase 8: no dispatch on the card of {missing}")
+    print(f"phase 8: dispatches {out['dispatches']} on {smi}", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1800,6 +1916,11 @@ def main() -> int:
     print(f"phase 7: wall {time.perf_counter() - t_phase:.1f} s", flush=True)
     print(json.dumps({"allocation": allocation, "card": smi}))
 
+    # -- phase 8: the fleet planner ----------------------------------------------
+    t_phase = time.perf_counter()
+    planner = phase8_planner(smi)
+    print(f"phase 8: wall {time.perf_counter() - t_phase:.1f} s", flush=True)
+    print(json.dumps({"planner": planner, "card": smi}))
 
     sources = {
         "flash_fwd": ("src/repro_torch/kernels/attention/csrc/flash_fwd_sm90.cu",

@@ -24,11 +24,20 @@ float32 the prompt forward takes decode's experts at a near-tie that
 rounding alone can decide, and a flip beyond one fails the check
 (``ROUTING_TIE_GAP``).
 
+``--plan-chips N --plan-pod mira`` prints the fleet planner's ranked plan
+for the arch at N midplanes of the machine (``--plan-shape``, default
+``decode_32k``) and returns the plan without building a model, as the
+JAX server's ``--plan-chips`` does:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b \
+      --plan-chips 16 --plan-pod mira
+
 Differences from the JAX driver: ``--reduced`` can be turned off
 (``--no-reduced`` runs full width; the JAX flag is ``store_true`` with
 ``default=True``), ``--device`` picks the card or the CPU, ``--plan-chips``
-is absent until the planner is ported, and ``main`` returns a dict of
-results rather than the throughput alone.  ``serve_config`` serves a
+needs ``--plan-pod`` (one of the paper's Blue Gene/Q machines, planned in
+torus mode at 2 GB/s a link: the port has no default pod), and ``main``
+returns a dict of results rather than the throughput alone.  ``serve_config`` serves a
 given config (a depth-cut one, say) with the same steps.
 """
 
@@ -45,6 +54,7 @@ import torch
 from repro_torch.configs import get_arch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device, synchronize
+from repro_torch.launch.planner import add_plan_arguments, plan_from_args
 from repro_torch.models import Model, build_model
 from repro_torch.models import moe
 from repro_torch.models.moe import expert_capacity
@@ -163,6 +173,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--gen-len", type=int, default=24)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    add_plan_arguments(ap, default_shape="decode_32k")
     return ap
 
 
@@ -230,8 +241,13 @@ def check_prefill_decode(arch: ArchConfig, prefill_logits: torch.Tensor, decode_
     return {"max_abs_diff": diff, "tol": tol, "routing": summary, "fault": fault}
 
 
-def main(argv=None) -> Dict[str, Any]:
-    args = build_parser().parse_args(argv)
+def main(argv=None):
+    """Serve, and return ``serve_config``'s dict; with ``--plan-chips``,
+    print and return the fleet planner's plan instead."""
+    ap = build_parser()
+    args = ap.parse_args(argv)
+    if args.plan_chips is not None:
+        return plan_from_args(ap, args)
     arch = get_arch(args.arch)
     if args.reduced:
         arch = arch.reduced()

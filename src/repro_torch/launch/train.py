@@ -9,11 +9,17 @@ restore, straggler tracking and optional gradient-compression state.
   PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-3b --full \\
       --batch 8 --seq 512 --steps 4 --microbatches 2
 
+``--plan-chips N --plan-pod mira`` prints the fleet planner's ranked plan
+for the arch at N midplanes of the machine (``--plan-shape``, default
+``train_4k``) and returns the plan without building a model.
+
 Differences from the JAX driver: ``--device`` picks the card (the default)
-or the CPU; ``--plan-chips`` raises until the fleet planner is ported; the
-step timer stops after ``torch.cuda.synchronize()``; parameters are made
-outside ``inference_mode``, since they are trained.  ``main`` returns the
-mean losses of the first and last fifth of the steps, as JAX's does.
+or the CPU; ``--plan-chips`` needs ``--plan-pod`` (one of the paper's Blue
+Gene/Q machines, planned in torus mode at 2 GB/s a link: the port has no
+default pod); the step timer stops after ``torch.cuda.synchronize()``;
+parameters are made outside ``inference_mode``, since they are trained.
+``main`` returns the mean losses of the first and last fifth of the steps,
+as JAX's does.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_arch
 from repro_torch.data import DataConfig, DataPipeline
 from repro_torch.device import resolve_device, synchronize
+from repro_torch.launch.planner import add_plan_arguments, plan_from_args
 from repro_torch.models import build_model
 from repro_torch.obs import timer as obs_timer
 from repro_torch.optim import AdamWConfig, adamw
@@ -54,8 +61,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--plan-chips", type=int, default=None,
-                    help="the fleet planner's slice plan (not ported yet: raises)")
+    add_plan_arguments(ap, default_shape="train_4k")
     return ap
 
 
@@ -69,9 +75,10 @@ def _to_device(batch, device: torch.device):
 
 
 def main(argv=None):
-    args = build_parser().parse_args(argv)
+    ap = build_parser()
+    args = ap.parse_args(argv)
     if args.plan_chips is not None:
-        raise NotImplementedError("--plan-chips needs the fleet planner, which the port does not have yet")
+        return plan_from_args(ap, args)
 
     arch = get_arch(args.arch)
     if args.reduced:

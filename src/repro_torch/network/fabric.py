@@ -6,22 +6,34 @@
 * Single-link tori with per-dimension wrap flags — ``TorusFabric.tpu``.
 
 ``link_bw`` (per link per direction) is a required argument here: the
-port carries no default link rate.  The HyperX fabric and the slice
-planning helpers are not ported.
+port carries no default link rate.  Slice planning (the paper's technique
+at the job level: :func:`slice_fabric`, :func:`ranked_slice_geometries`,
+:func:`best_slice_geometry`, :func:`worst_slice_geometry`) takes a torus
+pod; the HyperX fabric is not ported.
 """
 
 from __future__ import annotations
 
 import abc
 from dataclasses import dataclass
-from typing import Iterable, Iterator, Optional, Sequence, Tuple
+from typing import Iterable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from repro_torch.device import DeviceLike
 from repro_torch.network import geometry
 from repro_torch.network.geometry import Geometry, canonical, volume
 
-__all__ = ["Fabric", "LinkTable", "Torus", "TorusFabric"]
+__all__ = [
+    "Fabric",
+    "LinkTable",
+    "Torus",
+    "TorusFabric",
+    "best_slice_geometry",
+    "ranked_slice_geometries",
+    "slice_fabric",
+    "worst_slice_geometry",
+]
 
 
 @dataclass(frozen=True)
@@ -255,3 +267,100 @@ class Torus:
 
     def bisection_links(self) -> int:
         return geometry.bisection_links(self.dims)
+
+
+# ---------------------------------------------------------------------------
+# Slice planning (the paper's technique at the job level).
+# ---------------------------------------------------------------------------
+def _require_ring_fabric(pod, where: str) -> None:
+    """Slice planning computes wrap-aware torus bisections; anything
+    without per-dimension ring structure would get silently wrong
+    geometries, so fail loudly instead."""
+    if not isinstance(pod, TorusFabric):
+        raise TypeError(
+            f"{where} requires a TorusFabric (per-dimension ring structure with "
+            f"wrap semantics); got {type(pod).__name__}"
+        )
+
+
+def slice_fabric(pod: TorusFabric, geometry_: Sequence[int]) -> TorusFabric:
+    """The fabric of a cuboid slice allocated from a pod.
+
+    Slice semantics: wrap in a dimension only where the slice covers the
+    full (wrapped) pod dimension.  Slice sides are matched to pod dims
+    tightest-fit.  Raises ``TypeError`` for fabrics without per-dimension
+    ring structure.
+
+    >>> pod = TorusFabric.tpu((4, 4), link_bw=1.0)
+    >>> slice_fabric(pod, (4, 2)).wrap
+    (True, False)
+    """
+    _require_ring_fabric(pod, "slice_fabric")
+    g = canonical(geometry_)
+    g = g + (1,) * (len(pod.dims) - len(g))
+    if len(g) > len(pod.dims):
+        raise ValueError(f"slice {g} has more dims than pod {pod.dims}")
+    avail = sorted(range(len(pod.dims)), key=lambda i: pod.dims[i])
+    dims, wrap = [], []
+    used = set()
+    for side in g:
+        pick = None
+        for i in avail:
+            if i not in used and pod.dims[i] >= side:
+                pick = i
+                break
+        if pick is None:
+            raise ValueError(f"slice {g} does not fit in pod {pod.dims}")
+        used.add(pick)
+        dims.append(side)
+        wrap.append(pod.wrap[pick] and side == pod.dims[pick])
+    return TorusFabric(tuple(dims), tuple(wrap), pod.link_bw, pod.double_link_on_2)
+
+
+def ranked_slice_geometries(
+    pod: TorusFabric, chips: int, device: DeviceLike = "cuda"
+) -> List[Tuple[Geometry, int]]:
+    """All cuboid slice geometries of the requested size that fit the pod,
+    as (geometry, bisection_links) pairs, best first (max bisection, ties
+    broken toward the lexicographically-smallest canonical geometry).
+    Candidates come from the cut table on ``device``
+    (:func:`repro_torch.network.isoperimetry.fitting_geometries`); each
+    slice's bisection is the exact wrap-aware :func:`slice_fabric` value.
+    Raises ``TypeError`` for fabrics without per-dimension ring structure."""
+    _require_ring_fabric(pod, "ranked_slice_geometries")
+    from repro_torch.network.isoperimetry import fitting_geometries
+
+    candidates = [
+        tuple(int(x) for x in row) for row in fitting_geometries(pod.dims, chips, device=device)
+    ]
+    ranked = sorted(
+        ((g, slice_fabric(pod, g).bisection_links()) for g in candidates),
+        key=lambda t: (-t[1], t[0]),
+    )
+    if not ranked:
+        raise ValueError(f"no cuboid slice of {chips} chips fits in pod {pod.dims}")
+    return ranked
+
+
+def best_slice_geometry(
+    pod: TorusFabric, chips: int, device: DeviceLike = "cuda"
+) -> Tuple[Geometry, int]:
+    """Among all cuboid slices of the requested size that fit the pod, the
+    geometry with maximal internal bisection (links)."""
+    return ranked_slice_geometries(pod, chips, device=device)[0]
+
+
+def worst_slice_geometry(pod: TorusFabric, chips: int) -> Tuple[Geometry, int]:
+    """The fitting cuboid slice with *minimal* internal bisection (links),
+    the adversarial baseline of the avoidable-contention ratio (host-side
+    enumeration, as in the JAX package)."""
+    _require_ring_fabric(pod, "worst_slice_geometry")
+    worst: Optional[Tuple[Geometry, int]] = None
+    for g in geometry.sub_cuboids(pod.dims, chips):
+        fab = slice_fabric(pod, g)
+        b = fab.bisection_links()
+        if worst is None or b < worst[1] or (b == worst[1] and g > worst[0]):
+            worst = (g, b)
+    if worst is None:
+        raise ValueError(f"no cuboid slice of {chips} chips fits in pod {pod.dims}")
+    return worst

@@ -11,8 +11,9 @@ advances time from one completion to the next, as the JAX package's
 :func:`repro_torch.network.backend.drain` on ``device``.
 
 Path building (tie expansion and link enumeration) is host-side NumPy,
-copied from the JAX package, as is the paper's validation experiment
-(:func:`validate_prediction`).  Not ported: the minimal-adaptive router
+copied from the JAX package, as are the paper's validation experiment
+(:func:`validate_prediction`) and the phased schedules of ring
+collectives (:func:`simulate_phases`).  Not ported: the minimal-adaptive router
 (``adaptive_paths``), the HyperX router (``fabric_paths``: HyperX paths
 built by the JAX package drain here through
 :func:`repro_torch.interop.flow_paths_from_numpy`) and the utilization
@@ -38,10 +39,12 @@ _EPS = 1e-12
 __all__ = [
     "FlowPaths",
     "FlowSimResult",
+    "PhasedSimResult",
     "PredictionValidation",
     "dor_paths",
     "link_capacities",
     "simulate_flows",
+    "simulate_phases",
     "simulate_traffic",
     "validate_prediction",
 ]
@@ -447,3 +450,57 @@ def validate_prediction(
     predicted = paths.max_link_load(double_link_on_2) / link_bw
     res = simulate_flows(paths, link_bw=link_bw, double_link_on_2=double_link_on_2, device=device)
     return PredictionValidation(dims=dims, predicted_time=predicted, simulated_time=res.makespan, rtol=rtol)
+
+
+# ---------------------------------------------------------------------------
+# Phased collective schedules.
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class PhasedSimResult:
+    """Outcome of a dependent-phase schedule: per-phase results and the
+    serial total (phase k+1 starts when phase k drains)."""
+
+    phases: Tuple[FlowSimResult, ...]
+    total_time: float
+
+
+def simulate_phases(
+    dims: Sequence[int],
+    phases: Sequence[Traffic],
+    mode: str = "dor",
+    split_ties: bool = True,
+    link_bw: float = 1.0,
+    double_link_on_2: bool = True,
+    device: DeviceLike = "cuda",
+) -> PhasedSimResult:
+    """Simulate a sequence of dependent communication phases, each a full
+    ``(src, dst, vol)`` pattern that drains on ``device`` before the next
+    begins (a ring all-reduce over an axis of size n is ``2(n-1)``
+    neighbour-shift phases: :func:`repro_torch.network.patterns.ring_all_reduce_phases`).
+    Repeated occurrences of the *same* traffic tuple (identity, the shape
+    the phase builders emit) are drained once and their result reused.
+
+    >>> from repro_torch.network.patterns import ring_all_reduce_phases
+    >>> simulate_phases((4, 2), ring_all_reduce_phases((4, 2), 0, 8.0), device="cpu").total_time
+    6.0
+    """
+    results = []
+    total = 0.0
+    memo: dict = {}
+    for traffic in phases:
+        key = id(traffic)
+        res = memo.get(key)
+        if res is None:
+            res = simulate_traffic(
+                dims,
+                traffic,
+                mode=mode,
+                split_ties=split_ties,
+                link_bw=link_bw,
+                double_link_on_2=double_link_on_2,
+                device=device,
+            )
+            memo[key] = res
+        results.append(res)
+        total += res.makespan
+    return PhasedSimResult(phases=tuple(results), total_time=total)

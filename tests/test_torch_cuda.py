@@ -623,3 +623,21 @@ def test_allocation_advisor_on_the_card_matches_cpu(cuda):
     cpu = net.advise_policy_table((4, 4, 3, 2), table, unit_node_dims=(4, 4, 4, 4, 2), simulate=True, device="cpu")
     assert card == cpu
     assert [a.predicted_speedup for a in card] == [a.simulated_speedup for a in card] == [2.0, 2.0, 4.0 / 3.0]
+
+
+# ---------------------------------------------------------------------------
+# The fleet planner: the mapping catalogue, the geometry tables and the drain
+# on the card give the CPU path's rows bit for bit.
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "nemotron-4-340b"])
+def test_planner_rows_on_the_card_equal_cpu(cuda, arch):
+    from repro_torch.core import bgq
+    from repro_torch.launch import planner
+
+    kw = dict(pod=planner.bgq_pod("mira"), shape="train_4k", wrap_mode="torus",
+              unit_node_dims=bgq.MIDPLANE_DIMS, simulate_top_k=3)
+    card = planner.plan_model(arch, 16, device="cuda", **kw)
+    cpu = planner.plan_model(arch, 16, device="cpu", **kw)
+    assert [c.row() for c in card.table] == [c.row() for c in cpu.table]
+    np.testing.assert_allclose([c.simulated_slowdown for c in card.table],
+                               [c.simulated_slowdown for c in cpu.table], rtol=1e-9, atol=0)

@@ -305,5 +305,6 @@ def test_train_cli_flags():
     assert ap.parse_args([]).reduced is True
     assert ap.parse_args(["--full"]).reduced is False
     assert ap.parse_args([]).device == "cuda"
-    with pytest.raises(NotImplementedError, match="planner"):
+    assert ap.parse_args([]).plan_shape == "train_4k"
+    with pytest.raises(SystemExit):  # --plan-chips needs --plan-pod: the port has no default pod
         train.main(["--plan-chips", "64"])
