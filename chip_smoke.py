@@ -141,6 +141,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``--plan-chips 16 --plan-pod mira`` through ``serve.main`` and
    ``train.main``, and writes a ``planner`` JSON line.
 
+9. The distributed layer (no kernel of its own): (a) Strassen-Winograd,
+   the paper's Experiment B kernel, at n = 16384 in float32 without TF32,
+   depths 0, 1 and 2 each within 1e-4 of a float64 product relative to its
+   largest entry, timed beside ``torch.matmul`` with its FLOPs and its
+   bound at the float32 rate, and the CAPS model on Mira's four cells (the
+   x2-bisection cells' comm ratio in [1.37, 1.52], wallclock in [1.08,
+   1.22]); (b) both collective-matmul rings on a one-rank NCCL group
+   against ``x @ w`` within 1e-5, with no gather or scatter traced; (c) the
+   dry-run CLI, each cell in a child process on a fake process group:
+   granite-3-8b x train_4k on the (16, 16) mesh and x decode_32k on the
+   (2, 16, 16) mesh, calibrated; each record's state bytes equal the specs'
+   and the local shards built, its peak memory fits the card, and its
+   roofline terms, per-axis collective bytes and times are printed, then
+   a ``distributed`` JSON line.
+
 The line before the last is a JSON object with each kernel's launches on the
 main path, error, times and bound; the last line names the device.  With no
 CUDA card, or run outside a checkout of the repository, it prints no result
@@ -150,6 +165,7 @@ and exits non-zero.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import json
 import re
 import subprocess
@@ -214,6 +230,9 @@ SERVE_ARCHS = ["granite-3-8b", "zamba2-2.7b", "rwkv6-3b"]
 MOE_SERVE_ARCHS = ["mixtral-8x7b", "phi3.5-moe-42b-a6.6b"]
 MOE_SERVE = (8, "float32")  # (layers, dtype) of phase 3
 MOE_PROFILE = (16, "bfloat16")  # (layers, dtype) of phase 4
+# Phase 4's serving loop: PROFILE_PROMPT teacher-forced steps, then 8
+# generated; short, for the script's time limit.
+PROFILE_PROMPT = 32
 
 TRAIN_CPU_CHECK = [("granite-3-8b", 1), ("zamba2-2.7b", 1), ("rwkv6-3b", 2),  # (arch, microbatches)
                    ("mixtral-8x7b", 1), ("internvl2-1b", 1), ("musicgen-large", 2)]
@@ -280,6 +299,18 @@ H100_MIRA_PLANS = {
     "qwen1.5-110b": ((4, 4, 1, 1), (4, 4, 1, 1), 0.5, 29),
     "nemotron-4-340b": ((2, 2, 2, 2), (1, 16, 1, 1), 1.0, 13),
 }
+# Phase 9.  Strassen at a size the paper's per-node kernel sees; times over
+# STRASSEN_ITERS calls after one warm-up (one n = 16384 float32 product is
+# about 0.2 s).
+STRASSEN_N = 16384
+STRASSEN_DEPTHS = (0, 1, 2)
+STRASSEN_ITERS = 3
+F32_FLOPS_PER_S = 67e12  # float32 outside the tensor cores, H100 SXM data sheet
+RING_SHAPE = (4096, 4096, 4096)  # (m, k, n) of the one-rank rings
+DRYRUN_CELLS = [("granite-3-8b", "train_4k", "single"), ("granite-3-8b", "decode_32k", "multi")]
+# The collective term's link rate: one 400 Gb/s NDR InfiniBand port per
+# H100, the per-GPU rate between the nodes of a DGX H100 cluster.
+DRYRUN_LINK_BW = 50e9
 AVOIDABLE_FLOOR = 1.3  # the paper's avoidable-contention floor: worst / best step time
 
 
@@ -654,10 +685,11 @@ def profile_prompt_forward(model, params, prompts) -> dict:
 def profile_serving_loop(model, params, prompts, n_gen: int = 8) -> dict:
     """Device busy share of the serving loop (teacher-forced prefill, then
     greedy decode) at full width.  The loop runs untraced twice (the first
-    run absorbs lazy set-up, the second gives the wall time), then once under
-    torch.profiler, whose kernel intervals give the device's busy time; the
-    tracer slows the host, so the idle share divides by the untraced wall.
-    Kernels run on one stream, so their intervals do not overlap."""
+    run, at the same shapes, absorbs lazy set-up, the second gives the wall
+    time), then once under torch.profiler, whose kernel intervals give the
+    device's busy time; the tracer slows the host, so the idle share
+    divides by the untraced wall.  Kernels run on one stream, so their
+    intervals do not overlap."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.launch import serve
@@ -1285,7 +1317,7 @@ def phase4_profile(torch, cfg) -> None:
     gen = torch.Generator(device="cuda").manual_seed(1)
     prompt = lambda n: torch.randint(0, cfg.vocab_size, (8, n), device="cuda", generator=gen)
     fwd = profile_prompt_forward(build_model(no_drop_config(cfg), impl="kernel"), params, prompt(512))
-    prof = profile_serving_loop(build_model(cfg), params, prompt(64))
+    prof = profile_serving_loop(build_model(cfg), params, prompt(PROFILE_PROMPT))
     del params
     print(f"phase 4: {label} prompt forward (kernels, 8 x 512 tokens): {fwd['wall_ms']:.3f} ms "
           f"wall, {fwd['device_busy_ms']:.3f} ms device busy, device idle share "
@@ -1844,6 +1876,145 @@ def phase8_planner(smi: str, card: str = "cuda") -> dict:
     return out
 
 
+def phase9a_strassen(torch, smi: str) -> dict:
+    """Phase 9a: Strassen-Winograd (the paper's Experiment B kernel) at
+    ``STRASSEN_N`` in float32 without TF32, each depth against a float64
+    product on the card and timed beside ``torch.matmul``; then the CAPS
+    model on Mira's four cells."""
+    from repro_torch.core.strassen import caps_comm_model, mira_caps_cells, strassen_flops, strassen_winograd
+
+    n = STRASSEN_N
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    a = torch.randn(n, n, generator=gen, device="cuda")
+    b = torch.randn(n, n, generator=gen, device="cuda")
+    ref = a.double() @ b.double()
+    scale = float(ref.abs().max())
+    matmul_ms = cuda_ms(lambda: a @ b, iters=STRASSEN_ITERS, warmup=1)
+    io_bytes = 3 * n * n * 4  # a, b read once, c written once
+    out = {"n": n, "dtype": "float32", "tf32": False, "matmul_ms": matmul_ms, "depths": []}
+    for depth in STRASSEN_DEPTHS:
+        got = strassen_winograd(a, b, depth)
+        err = float((got.double() - ref).abs().max()) / scale
+        del got
+        if not err < 1e-4:
+            raise RuntimeError(f"phase 9a: Strassen depth {depth}: relative error {err:.3e} >= 1e-4")
+        ms = cuda_ms(lambda: strassen_winograd(a, b, depth), iters=STRASSEN_ITERS, warmup=1)
+        flops = strassen_flops(n, depth)
+        bound_ms = max(flops / F32_FLOPS_PER_S, io_bytes / HBM_BYTES_PER_S) * 1e3
+        row = {"depth": depth, "rel_err": err, "ms": ms, "flops": flops, "bound_ms": bound_ms,
+               "bound_by": "operations" if flops / F32_FLOPS_PER_S > io_bytes / HBM_BYTES_PER_S else "bytes"}
+        out["depths"].append(row)
+        print(f"phase 9a: Strassen-Winograd n={n} depth {depth}: {ms:.3f} ms (torch.matmul {matmul_ms:.3f} ms), "
+              f"{flops:.4e} FLOPs, bound {bound_ms:.3f} ms at the float32 rate, rel err {err:.3e} on {smi}",
+              flush=True)
+    del ref, a, b
+    torch.cuda.empty_cache()
+    preds = caps_comm_model(mira_caps_cells(), phi=0.45, comm_over_comp=0.5)
+    for p in preds[:3]:  # the x2-bisection cells
+        if not (1.37 <= p.comm_ratio <= 1.52 and 1.08 <= p.wallclock_ratio <= 1.22):
+            raise RuntimeError(f"phase 9a: CAPS prediction {p} outside the paper's bands")
+    out["caps"] = [dataclasses.asdict(p) for p in preds]
+    for p in preds:
+        print(f"phase 9a: CAPS on Mira, {p.midplanes} midplanes: bisection x{p.bisection_ratio:.3f}, "
+              f"comm x{p.comm_ratio:.3f}, wallclock x{p.wallclock_ratio:.3f}", flush=True)
+    return out
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def phase9b_ring(torch) -> dict:
+    """Phase 9b: the collective-matmul rings on a one-rank NCCL group,
+    against ``x @ w``, with no gather or scatter traced."""
+    import torch.distributed as dist
+
+    from repro_torch.analysis.roofline import CollectiveTrace
+    from repro_torch.distributed.collective_matmul import allgather_matmul, matmul_reducescatter
+
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}", rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        x = torch.randn(RING_SHAPE[0], RING_SHAPE[1], generator=gen, device="cuda")
+        w = torch.randn(RING_SHAPE[1], RING_SHAPE[2], generator=gen, device="cuda")
+        want = x @ w
+        with CollectiveTrace() as trace:
+            gathered = allgather_matmul(x, w)
+            scattered = matmul_reducescatter(x, w)
+        out = {"shape": RING_SHAPE, "backend": dist.get_backend(), "ranks": dist.get_world_size()}
+        for label, got in (("allgather_matmul", gathered), ("matmul_reducescatter", scattered)):
+            rel = float((got - want).abs().max() / want.abs().max())
+            if got.shape != want.shape or not rel < 1e-5:
+                raise RuntimeError(f"phase 9b: {label}: shape {tuple(got.shape)}, relative error {rel:.3e}")
+            out[label] = {"rel_err": rel}
+        stats = trace.stats()
+        if stats["all-gather"]["count"] or stats["reduce-scatter"]["count"]:
+            raise RuntimeError(f"phase 9b: the ring traced a gather or scatter: {stats}")
+        out["traced"] = stats
+    finally:
+        dist.destroy_process_group()
+    print(f"phase 9b: rings on a one-rank {out['backend']} group at {RING_SHAPE}: "
+          f"allgather_matmul {out['allgather_matmul']['rel_err']:.3e}, "
+          f"matmul_reducescatter {out['matmul_reducescatter']['rel_err']:.3e}; traced {out['traced']}", flush=True)
+    return out
+
+
+def phase9c_dryrun(torch, smi: str) -> dict:
+    """Phase 9c: the dry-run CLI in a child process per cell (a process
+    holds one fake process group), then each record held to the exact
+    shard bytes of its specs and to the card's memory."""
+    from repro_torch.configs import SHAPES, get_arch
+    from repro_torch.distributed.sharding import ShardingRules
+    from repro_torch.launch.dryrun import RESULTS_DIR, cell_state_bytes
+    from repro_torch.launch.mesh import production_mesh_shape
+
+    env = {**__import__("os").environ, "PYTHONPATH": str(REPO / "src")}
+    total = torch.cuda.get_device_properties(0).total_memory
+    out = []
+    for arch_name, shape_name, mesh_kind in DRYRUN_CELLS:
+        t0 = time.perf_counter()
+        subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch_name,
+                        "--shape", shape_name, "--mesh", mesh_kind, "--link-bw", repr(DRYRUN_LINK_BW),
+                        "--force", "--device", "cuda"], check=True, env=env, cwd=REPO)
+        wall = time.perf_counter() - t0
+        rec = json.loads((RESULTS_DIR / f"{arch_name}__{shape_name}__{mesh_kind}.json").read_text())
+        rules = ShardingRules(get_arch(arch_name), production_mesh_shape(mesh_kind == "multi"))
+        want, _ = cell_state_bytes(get_arch(arch_name), SHAPES[shape_name], rules)
+        peak = rec["memory_analysis"]["peak_allocated_bytes"]
+        built = rec["memory_analysis"]["shard_bytes_allocated"]
+        if not rec["ok"] or rec["bytes_per_device"] != want or built != want:
+            raise RuntimeError(f"phase 9c: {arch_name} x {shape_name} x {mesh_kind}: state bytes "
+                               f"{rec['bytes_per_device']}, local shards built {built}, specs {want}")
+        if not peak < total:
+            raise RuntimeError(f"phase 9c: {arch_name} x {shape_name} x {mesh_kind}: peak {peak} B "
+                               f"does not fit the card's {total} B")
+        row = {key: rec[key] for key in ("arch", "shape", "mesh", "chips", "compute_term", "memory_term",
+                                         "collective_term", "bottleneck", "collective_bytes",
+                                         "per_axis_collectives", "lower_seconds", "compile_seconds",
+                                         "memory_analysis", "view_replications", "link_bw")}
+        row["wall_s"] = wall
+        out.append(row)
+        print(f"phase 9c: {arch_name} x {shape_name} x {mesh_kind} ({rec['chips']} fake ranks): "
+              f"compute {rec['compute_term']:.4e} s, memory {rec['memory_term']:.4e} s, collective "
+              f"{rec['collective_term']:.4e} s at {DRYRUN_LINK_BW:.3e} B/s, bottleneck {rec['bottleneck']}; "
+              f"per axis {json.dumps(rec['per_axis_collectives'])}; run {rec['lower_seconds']} s, "
+              f"calibration {rec['compile_seconds']} s, child {wall:.1f} s; state {want:.0f} B, "
+              f"peak allocated {peak} B on {smi}", flush=True)
+    return {"cells": out}
+
+
+def phase9_distributed(torch, smi: str) -> dict:
+    """Phase 9: Strassen-Winograd and CAPS, the collective-matmul rings, and
+    the dry-run of the production meshes."""
+    return {"strassen": phase9a_strassen(torch, smi), "ring": phase9b_ring(torch),
+            "dryrun": phase9c_dryrun(torch, smi)}
+
+
 def main() -> int:
     import torch
 
@@ -1921,6 +2092,12 @@ def main() -> int:
     planner = phase8_planner(smi)
     print(f"phase 8: wall {time.perf_counter() - t_phase:.1f} s", flush=True)
     print(json.dumps({"planner": planner, "card": smi}))
+
+    # -- phase 9: the dry-run and the distributed layer ----------------------------
+    t_phase = time.perf_counter()
+    distributed = phase9_distributed(torch, smi)
+    print(f"phase 9: wall {time.perf_counter() - t_phase:.1f} s", flush=True)
+    print(json.dumps({"distributed": distributed, "card": smi}))
 
     sources = {
         "flash_fwd": ("src/repro_torch/kernels/attention/csrc/flash_fwd_sm90.cu",

@@ -1,2 +1,3 @@
-"""The distributed layer (port of ``repro.distributed``): so far only the
-partition-spec validator the fleet planner checks its rules with."""
+"""The distributed layer (port of ``repro.distributed``): the sharding
+rules and their DTensor placements (:mod:`.sharding`) and the
+collective-matmul rings (:mod:`.collective_matmul`)."""

@@ -1,0 +1,614 @@
+"""Multi-pod dry-run: run rank 0's step of every (arch x shape x mesh) cell
+on a fake production mesh (port of ``repro.launch.dryrun``).
+
+For each cell the dry-run:
+  1. builds the model and the step (train step / prefill / decode),
+  2. makes every parameter, optimizer moment, cache and batch leaf a
+     DTensor of its ``ShardingRules`` placements on the production mesh
+     (:func:`repro_torch.launch.mesh.fake_production_mesh`: 256 or 512
+     ranks of a fake process group, this process rank 0), each from a zero
+     local shard of its exact local shape: no full tensor is ever built,
+  3. runs the step once under a
+     :class:`~repro_torch.analysis.roofline.CollectiveTrace` and a
+     :class:`~repro_torch.analysis.roofline.LocalFlopCounter`: the values are meaningless, as JAX's
+     ``ShapeDtypeStruct`` inputs are, but the local shards are real, so the
+     device's peak allocated bytes are rank 0's peak (JAX's
+     ``memory_analysis``), printed beside the exact shard bytes of the
+     state; success proves the distribution config is coherent
+     (divisibility, a sharding strategy for every op),
+  4. derives roofline terms:
+       - compute/memory: the exact analytic model
+         (:mod:`repro_torch.analysis.analytic`),
+       - collectives: traced in *calibration* runs at two depths (L0, L1)
+         and one or two microbatch counts, and extrapolated with the exact
+         bilinear model F(L, m) = a + b*L + c*m + d*L*m (:func:`bilinear`),
+  5. writes a JSON record to ``build/dryrun/``.
+
+The step runs on a two-dimensional mesh of the rules' groups, (the fsdp
+axes flattened, "model"): on the multi-pod mesh ("pod", "data", "model")
+every rule shards "pod" and "data" together, and DTensor plans the
+redistribution of a dimension sharded over two mesh dimensions by a graph
+search over placements, which is slow.  The rank layout is the production mesh's (row-major), and
+a collective over the flattened group is attributed to "pod+data", as JAX
+attributes one over the fsdp replica groups.
+
+DTensor chooses its own redistributions, so the traced collective counts
+and bytes are not XLA's.
+
+Usage:
+  python -m repro_torch.launch.dryrun --arch granite-3-8b --shape train_4k --mesh single --link-bw 50e9
+  python -m repro_torch.launch.dryrun --all --mesh both --link-bw 50e9
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import math
+import subprocess
+import time
+import traceback
+from pathlib import Path
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+
+from repro_torch import tree
+from repro_torch.analysis import analytic, roofline
+from repro_torch.analysis.axis_attribution import per_axis_collectives
+from repro_torch.configs import SHAPES, all_archs, cells, get_arch
+from repro_torch.configs.base import ArchConfig, ShapeConfig
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed.sharding import (
+    ShardingRules,
+    mesh_axis_sizes,
+    named,
+    placements,
+    shard_bytes,
+    shard_shape,
+)
+from repro_torch.launch.mesh import fake_production_mesh
+from repro_torch.models.model import build_model
+from repro_torch.optim import adamw
+from repro_torch.train.steps import make_train_step
+
+RESULTS_DIR = Path(__file__).resolve().parents[3] / "build" / "dryrun"
+
+# Activation-memory knob per arch for train_4k (microbatch count).
+MICROBATCHES = {
+    "nemotron-4-340b": 8,
+    "qwen1.5-110b": 4,
+    "command-r-35b": 4,
+    "mixtral-8x7b": 4,
+    "phi3.5-moe-42b-a6.6b": 4,
+    "granite-3-8b": 2,
+    "musicgen-large": 2,
+    "zamba2-2.7b": 2,
+    "rwkv6-3b": 2,
+    "internvl2-1b": 1,
+}
+
+
+def batch_shapes(arch: ArchConfig, shape: ShapeConfig) -> Dict[str, torch.Tensor]:
+    """The cell's inputs as meta tensors (JAX's ``batch_specs_struct``)."""
+    B, S = shape.global_batch, shape.seq_len
+    meta = lambda *s, dtype: torch.empty(s, dtype=dtype, device="meta")
+    f32, i32 = torch.float32, torch.int32
+    if shape.is_decode:
+        if arch.frontend == "audio":
+            return {"frame_embeds": meta(B, 1, arch.d_model, dtype=f32)}
+        return {"tokens": meta(B, 1, dtype=i32)}
+    if arch.frontend == "audio":
+        return {
+            "frame_embeds": meta(B, S, arch.d_model, dtype=f32),
+            "targets": meta(B, S, arch.n_codebooks, dtype=i32),
+        }
+    out = {"tokens": meta(B, S, dtype=i32)}
+    if arch.frontend == "vlm":
+        out["patch_embeds"] = meta(B, arch.num_patches, arch.d_model, dtype=f32)
+    return out
+
+
+def run_mesh(mesh, rules: ShardingRules):
+    """The DeviceMesh the step runs on: ``mesh``'s ranks with the fsdp axes
+    flattened into one dimension named ``"+".join(fsdp)``, then the model
+    axis (when the rules have one)."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    names = list(mesh.mesh_dim_names)
+    groups = [rules.fsdp] + ([(rules.model,)] if rules.model else [])
+    order = [names.index(a) for g in groups for a in g]
+    if sorted(order) != list(range(len(names))):
+        raise ValueError(f"the rules' axes {groups} do not cover the mesh axes {names} once each")
+    ranks = mesh.mesh.permute(order).reshape([math.prod(mesh.size(names.index(a)) for a in g)
+                                              for g in groups])
+    return DeviceMesh(mesh.device_type, ranks, mesh_dim_names=tuple("+".join(g) for g in groups))
+
+
+def _zero_shards(specs, shapes, sizes, rmesh, device: torch.device, dtype=None):
+    """A tree of DTensors like ``shapes`` (meta tensors), each a zero local
+    shard of its spec's local shape (``dtype`` overrides the leaves')."""
+    from torch.distributed.tensor import DTensor
+
+    def make(spec, t):
+        local = torch.zeros(shard_shape(spec, t.shape, sizes), dtype=dtype or t.dtype, device=device)
+        return DTensor.from_local(local, rmesh, placements(spec, rmesh), run_check=False,
+                                  shape=t.shape, stride=torch.empty(t.shape, device="meta").stride())
+
+    spec_leaves = tree.leaves(specs, is_leaf=lambda n: isinstance(n, tuple))
+    return tree.unflatten(shapes, [make(s, t) for s, t in zip(spec_leaves, tree.leaves(shapes), strict=True)])
+
+
+class Zero3Views(TorchDispatchMode):
+    """The dry-run's three rules on top of DTensor's own sharding propagation.
+
+    * ZeRO-3: an op that takes a parameter (a DTensor sharing storage with
+      one of ``params``, views included) takes it gathered over the fsdp
+      mesh dimension, as XLA gathers an FSDP-sharded weight before its use;
+      left to itself, DTensor may instead gather the activations and
+      contract over the sharded weight dimension (on granite's train cell:
+      the whole batch on every rank).  The gather runs below autograd, so
+      each use gathers anew (remat's recompute too) and the gradient comes
+      back partial, to be reduce-scattered to the parameter's shards.
+    * Megatron's activation layout: the other operand of a product with a
+      parameter (``mm``, ``addmm``, ``bmm``) is taken with its rows sharded
+      over the fsdp mesh dimension and replicated over the others, as the
+      batch is sharded.  DTensor's cost model, left to itself, contracts
+      over a model-sharded hidden dimension into partial sums or
+      replicates the batch (on granite's train cell: every token of the
+      global batch through the head on each rank).
+    * Views: before a view or reshape, the input is replicated over each
+      mesh dimension whose shard the view cannot keep: a shard of a
+      dimension the view merges into its left neighbour, or one it splits
+      or merges unevenly (as 8 KV heads over 16 ranks).  The decision is
+      made from the shapes and placements, by the rule DTensor's view
+      propagation applies (a merge keeps the shard of its leftmost
+      dimension, a split that of its leftmost piece, each only when it
+      divides evenly); GSPMD pads or reshards such a view, here the tensor
+      is gathered, which the trace counts.  ``replications`` counts them by
+      op and mesh dimension.
+    """
+
+    VIEWS = ("view", "_unsafe_view", "reshape")
+    PRODUCTS = ("mm", "addmm", "bmm")
+
+    def __init__(self, params, fsdp_dim: int):
+        super().__init__()
+        self.storages = {t.to_local().untyped_storage().data_ptr() for t in tree.leaves(params)}
+        self.fsdp_dim = fsdp_dim
+        self.gathers = 0
+        self.replications: Dict[str, int] = {}
+
+    def _is_param(self, a) -> bool:
+        from torch.distributed.tensor import DTensor
+
+        return isinstance(a, DTensor) and a.to_local().untyped_storage().data_ptr() in self.storages
+
+    def _rows_over_fsdp(self, a):
+        """``a`` with its rows (dimension -2) sharded over the fsdp mesh
+        dimension and replicated over the others."""
+        from torch.distributed.tensor import Replicate, Shard
+
+        want = [Replicate()] * a.device_mesh.ndim
+        want[self.fsdp_dim] = Shard(a.dim() - 2)
+        return a if tuple(want) == tuple(a.placements) else a.redistribute(a.device_mesh, want)
+
+    def _gathered(self, a):
+        from torch.distributed.tensor import Replicate
+
+        if not self._is_param(a) or not a.placements[self.fsdp_dim].is_shard():
+            return a
+        self.gathers += 1
+        kept = list(a.placements)
+        kept[self.fsdp_dim] = Replicate()
+        return a.redistribute(a.device_mesh, kept)
+
+    def _viewable(self, op: str, t, size):
+        """``t`` replicated over the mesh dimensions whose shards a view of
+        it to ``size`` cannot keep (:func:`view_keeps_shard`), laid out
+        contiguously on each rank."""
+        from torch.distributed.tensor import DTensor, Replicate
+
+        if not t.to_local().is_contiguous():
+            # DTensor's strides are the global tensor's; a view of a local
+            # shard that an op left strided needs it laid out as they say
+            t = DTensor.from_local(t.to_local().contiguous(), t.device_mesh, t.placements,
+                                   run_check=False, shape=t.shape, stride=t.stride())
+        mesh_sizes = [t.device_mesh.size(m) for m in range(t.device_mesh.ndim)]
+        drop = [m for m, pl in enumerate(t.placements)
+                if pl.is_shard() and not view_keeps_shard(tuple(t.shape), size, t.placements, mesh_sizes, m)]
+        if not drop:
+            return t
+        kept = list(t.placements)
+        for m in drop:
+            key = f"{op}@{t.device_mesh.mesh_dim_names[m]}"
+            self.replications[key] = self.replications.get(key, 0) + 1
+            kept[m] = Replicate()
+        return t.redistribute(t.device_mesh, kept)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch.distributed.tensor import DTensor
+
+        kwargs = kwargs or {}
+        if not any(issubclass(t, DTensor) for t in types):
+            return func(*args, **kwargs)
+        if func._opname in self.PRODUCTS:
+            i = 1 if func._opname == "addmm" else 0  # addmm(bias, a, w)
+            if self._is_param(args[i + 1]) and not self._is_param(args[i]):
+                args = args[:i] + (self._rows_over_fsdp(args[i]),) + args[i + 1:]
+        args = tuple([self._gathered(x) for x in a] if isinstance(a, (list, tuple)) else self._gathered(a)
+                     for a in args)
+        if func._opname in self.VIEWS:
+            args = (self._viewable(func._opname, args[0], args[1]),) + args[1:]
+        return func(*args, **kwargs)
+
+
+def view_groups(src, dst) -> List[Tuple[List[int], List[int]]]:
+    """The dimensions of a reshape from shape ``src`` to ``dst``, in
+    pairs (input dims, output dims) whose sizes have equal products, each
+    as short as it can be; a dimension of size 1 is a group of its own."""
+    groups, i, j = [], 0, 0
+    while i < len(src) or j < len(dst):
+        if i < len(src) and src[i] == 1:
+            groups.append(([i], []))
+            i += 1
+        elif j < len(dst) and dst[j] == 1:
+            groups.append(([], [j]))
+            j += 1
+        else:
+            ins, outs, a, b = [i], [j], src[i], dst[j]
+            i, j = i + 1, j + 1
+            while a != b:
+                if a < b:
+                    ins.append(i)
+                    a *= src[i]
+                    i += 1
+                else:
+                    outs.append(j)
+                    b *= dst[j]
+                    j += 1
+            groups.append((ins, outs))
+    return groups
+
+
+def view_keeps_shard(src, size, placements_, mesh_sizes, m: int) -> bool:
+    """Whether a view of a tensor of shape ``src`` and ``placements_`` to
+    ``size`` (one entry may be -1) keeps the shard on mesh dimension ``m``:
+    its tensor dimension maps to one output dimension unchanged, or leads
+    its group (the leftmost dimension of a merge, the first piece of a
+    split) and the mesh dimensions sharding it divide both that dimension
+    and the first output dimension of the group."""
+    numel = math.prod(src)
+    dst = [int(n) for n in size]
+    if -1 in dst:
+        known = math.prod(n for n in dst if n != -1)
+        dst[dst.index(-1)] = numel // known if known else 0
+    d = placements_[m].dim
+    ins, outs = next(g for g in view_groups(src, dst) if d in g[0])
+    if len(ins) == 1 and len(outs) == 1:
+        return True
+    n = math.prod(mesh_sizes[k] for k, pl in enumerate(placements_) if pl.is_shard(d))
+    return d == ins[0] and bool(outs) and src[d] % n == 0 and dst[outs[0]] % n == 0
+
+
+@dataclasses.dataclass
+class CellRun:
+    """One run of a cell's step: what it traced and what its state holds."""
+
+    trace: roofline.CollectiveTrace
+    flops: Dict[str, float]  # rank 0's FLOPs (LocalFlopCounter)
+    state_bytes: float  # exact per-rank bytes of the step's state, from the specs
+    allocated_bytes: float  # the same, summed over the local shards the run built
+    cache_bytes: float  # of which the decode cache
+    params_shapes: Any  # the parameter tree on the meta device
+    rmesh: Any  # the DeviceMesh the step ran on
+    view_replications: Dict[str, int]  # Zero3Views' replications before a view
+    param_gathers: int  # Zero3Views' parameter gathers
+
+
+def cell_state_bytes(arch: ArchConfig, shape: ShapeConfig, rules: ShardingRules) -> Tuple[float, float]:
+    """(exact per-rank bytes of the step's state, of which the decode
+    cache) from the specs alone: params + grads (bf16) + m + v (float32)
+    for a train cell, the parameters for prefill, parameters and cache for
+    decode."""
+    model = build_model(arch)
+    params_shapes = model.init_shapes()
+    param_specs = rules.params_specs(params_shapes)
+    params = shard_bytes(param_specs, params_shapes, rules.sizes)
+    if shape.kind == "train":
+        f32 = tree.tree_map(lambda t: torch.empty(t.shape, dtype=torch.float32, device="meta"), params_shapes)
+        return 2 * params + 2 * shard_bytes(rules.opt_specs(params_shapes), f32, rules.sizes), 0.0
+    if shape.kind == "prefill":
+        return params, 0.0
+    cache_shapes = model.cache_shapes(shape.global_batch, shape.seq_len)
+    cache = shard_bytes(rules.cache_specs(cache_shapes), cache_shapes, rules.sizes)
+    return params + cache, cache
+
+
+def _run_cell(arch, shape, mesh, rmesh, *, microbatches, device: DeviceLike = "cuda") -> CellRun:
+    """Build and run rank 0's step of one cell once, on ``rmesh``
+    (:func:`run_mesh` of ``mesh``)."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    dev = resolve_device(device)
+    sizes = mesh_axis_sizes(mesh)
+    rules = ShardingRules(arch, sizes)
+    model = dataclasses.replace(
+        build_model(arch),
+        logits_sharding=lambda ndim: placements(rules.logits_spec(ndim), rmesh),
+    )
+    params_shapes = model.init_shapes()
+    param_specs = rules.params_specs(params_shapes)
+    params = _zero_shards(param_specs, params_shapes, sizes, rmesh, dev)
+    batch_meta = batch_shapes(arch, shape)
+    batch = _zero_shards(rules.batch_specs(batch_meta), batch_meta, sizes, rmesh, dev)
+    trace = roofline.CollectiveTrace()
+    counter = roofline.LocalFlopCounter()
+    views = Zero3Views(params, fsdp_dim=0)
+    with implicit_replication():
+        if shape.kind == "train":
+            moment_specs = rules.opt_specs(params_shapes)
+            moments = lambda: _zero_shards(moment_specs, params_shapes, sizes, rmesh, dev, torch.float32)
+            opt_state = adamw.AdamWState(torch.zeros((), dtype=torch.int32, device=dev), moments(), moments())
+            step_fn = make_train_step(model, adamw.AdamWConfig(), microbatches=microbatches,
+                                      grad_placements=named(rmesh, param_specs))
+            with counter, trace, views:
+                step_fn(params, opt_state, batch)
+        elif shape.kind == "prefill":
+            with torch.no_grad(), counter, trace, views:
+                logits, _ = model.forward(params, batch)
+                logits[:, -1]
+        else:  # decode
+            cache_shapes = model.cache_shapes(shape.global_batch, shape.seq_len)
+            cache = _zero_shards(rules.cache_specs(cache_shapes), cache_shapes, sizes, rmesh, dev)
+            with torch.no_grad(), counter, trace, views:
+                model.decode_step(params, cache, batch, shape.seq_len - 1)
+    # the bytes of the local shards this run allocated (grads: as the params)
+    local = lambda t: sum(x.to_local().nbytes for x in tree.leaves(t))
+    allocated = local(params)
+    if shape.kind == "train":
+        allocated = 2 * allocated + local(opt_state.m) + local(opt_state.v)
+    elif shape.kind == "decode":
+        allocated += local(cache)
+    state_bytes, cache_bytes = cell_state_bytes(arch, shape, rules)
+    return CellRun(trace, counter.counts(), state_bytes, float(allocated), cache_bytes, params_shapes, rmesh,
+                   views.replications, views.gathers)
+
+
+def _calib_depths(arch):
+    if arch.shared_attn_every:
+        step = arch.shared_attn_every
+        return step, 2 * step, arch.n_layers // step, 1  # L0, L1, units_full, per
+    return 2, 4, arch.n_layers, None
+
+
+def bilinear(measurements: Dict[Tuple[int, int], float], L0: int, L1: int, Lf: int, mb: int) -> float:
+    """The exact bilinear calibration F(L, m) = a + b*L + c*m + d*L*m,
+    evaluated at depth ``Lf`` and ``mb`` microbatches.
+
+    ``measurements`` maps (depth, microbatches) to the measured value at
+    (L0, 1), (L1, 1) and, for the bilinear model, (L0, 2) and (L1, 2);
+    without the microbatch-2 points the model is linear in depth (prefill
+    and decode cells).  Negative extrapolations are clipped to 0."""
+    f00 = measurements[(L0, 1)]
+    f10 = measurements[(L1, 1)]
+    if (L0, 2) not in measurements:
+        slope = (f10 - f00) / (L1 - L0)
+        return max(0.0, f00 + slope * (Lf - L0))
+    f01 = measurements[(L0, 2)]
+    f11 = measurements[(L1, 2)]
+    d = (f11 - f01 - f10 + f00) / (L1 - L0)
+    b = (f10 - f00) / (L1 - L0) - d
+    c = f01 - f00 - d * L0
+    a = f00 - b * L0 - c - d * L0
+    return max(0.0, a + b * Lf + c * mb + d * Lf * mb)
+
+
+def card_info() -> Dict[str, Any]:
+    """The card's name and power limit as nvidia-smi prints them (None
+    without a card)."""
+    if not torch.cuda.is_available():
+        return {"name": None, "power_limit": None}
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    name, limit = (s.strip() for s in out.rsplit(",", 1))
+    return {"name": name, "power_limit": limit}
+
+
+def run_cell(arch_name: str, shape_name: str, mesh_kind: str, *, link_bw: float,
+             force: bool = False, skip_calibration: bool = False,
+             device: DeviceLike = "cuda") -> dict:
+    """Dry-run one cell on the fake production mesh and write its record
+    (or read the record a previous run wrote, unless ``force``)."""
+    RESULTS_DIR.mkdir(parents=True, exist_ok=True)
+    out_path = RESULTS_DIR / f"{arch_name}__{shape_name}__{mesh_kind}.json"
+    if out_path.exists() and not force:
+        return json.loads(out_path.read_text())
+    arch, shape = get_arch(arch_name), SHAPES[shape_name]
+    dev = resolve_device(device)
+    mesh = fake_production_mesh(multi_pod=(mesh_kind == "multi"), device=dev)
+    record = dryrun_cell(arch, shape, mesh, mesh_kind=mesh_kind,
+                         link_bw=link_bw, skip_calibration=skip_calibration, device=dev)
+    out_path.write_text(json.dumps(record, indent=1))
+    return record
+
+
+def dryrun_cell(arch: ArchConfig, shape: ShapeConfig, mesh, *, mesh_kind: str, link_bw: float,
+                skip_calibration: bool = False, microbatches: Optional[int] = None,
+                device: DeviceLike = "cuda") -> dict:
+    """The record of one cell on ``mesh`` (a named DeviceMesh over an
+    initialised, usually fake, default process group).  A train cell takes
+    ``MICROBATCHES``, any cell ``microbatches`` when it is given (the
+    record's ``variant`` then says so, as JAX's does)."""
+    dev = resolve_device(device)
+    mesh_shape = mesh_axis_sizes(mesh)
+    chips = mesh.size()
+    variant = {} if microbatches is None else {"microbatches": microbatches}
+    mb = MICROBATCHES.get(arch.name, 1) if shape.kind == "train" else 1
+    mb = mb if microbatches is None else microbatches
+    rmesh = run_mesh(mesh, ShardingRules(arch, mesh_shape))
+
+    # -- 1) production run: the coherence + memory proof ---------------------
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        base_allocated = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    prod = _run_cell(arch, shape, mesh, rmesh, microbatches=mb, device=dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t_run = time.perf_counter() - t0
+    memory = {"state_bytes": prod.state_bytes, "shard_bytes_allocated": prod.allocated_bytes}
+    if dev.type == "cuda":
+        memory["peak_allocated_bytes"] = torch.cuda.max_memory_allocated(dev) - base_allocated
+    prod_stats = prod.trace.stats()
+
+    # -- 2) collective calibration: depths L0 < L1 ------------------------------
+    t0 = time.perf_counter()
+    if skip_calibration:
+        coll_stats = prod_stats
+        per_axis = per_axis_collectives(prod.trace, prod.rmesh, mesh_shape)
+        coll_note = "production-run counts (every layer traced)"
+    else:
+        # Collective bytes/counts are F(L, m) = a + b*L + c*m + d*L*m
+        # (per-layer-per-microbatch weight gathers, per-layer activation
+        # reductions, per-microbatch top-level terms, constants): four runs
+        # at (L0,1),(L1,1),(L0,2),(L1,2) determine the coefficients exactly;
+        # prefill/decode cells use the depth-only linear model (two runs).
+        L0, L1, _, _ = _calib_depths(arch)
+        mbs = (1, 2) if (shape.kind == "train" and mb > 1) else (1,)
+        meas, ax_meas = {}, {}
+        for m_i in mbs:
+            for L in (L0, L1):
+                sub = dataclasses.replace(arch, n_layers=L)
+                run = _run_cell(sub, shape, mesh, rmesh, microbatches=m_i, device=dev)
+                meas[(L, m_i)] = run.trace.stats()
+                ax_meas[(L, m_i)] = per_axis_collectives(run.trace, run.rmesh, mesh_shape)
+        Lf = arch.n_layers
+        fit = lambda table, get: bilinear({k: get(v) for k, v in table.items()}, L0, L1, Lf, mb)
+        coll_stats = {
+            key: {field: fit(meas, lambda s, k=key, f=field: s[k][f]) for field in ("bytes", "count")}
+            for key in meas[(L0, 1)]
+        }
+        axes = set().union(*ax_meas.values())
+        per_axis = {
+            ax: {field: fit(ax_meas, lambda s, a=ax, f=field: s.get(a, {}).get(f, 0.0))
+                 for field in ("bytes", "count")}
+            for ax in sorted(axes)
+        }
+        coll_note = f"bilinear calibration: depths {L0},{L1} x microbatches {list(mbs)}"
+    t_calib = time.perf_counter() - t0
+    coll_bytes = roofline.total_collective_bytes(coll_stats)
+
+    # -- 3) analytic compute/memory terms ---------------------------------------
+    n_matmul = roofline.matmul_param_count(prod.params_shapes)
+    cost = analytic.cell_cost(
+        arch, shape, n_matmul,
+        cache_bytes=prod.cache_bytes * chips,
+        microbatches=mb,
+    )
+
+    report = roofline.RooflineReport(
+        arch=arch.name,
+        shape=shape.name,
+        mesh=mesh_kind,
+        chips=chips,
+        hlo_flops=cost.flops_compiled / chips,
+        hlo_bytes=cost.bytes_hbm / chips,
+        collective_bytes=coll_bytes,
+        collectives=coll_stats,
+        model_flops=cost.flops_useful,
+        link_bw=link_bw,
+        bytes_per_device=prod.state_bytes,
+        notes=f"microbatches={mb}; collectives: {coll_note}",
+    )
+    record = report.to_json()
+    record.update(
+        lower_seconds=round(t_run, 1),
+        compile_seconds=round(t_calib, 1),
+        memory_analysis=memory,
+        flop_counter=prod.flops,
+        production_collectives=prod_stats,
+        view_replications=prod.view_replications,
+        param_gathers=prod.param_gathers,
+        per_axis_collectives=per_axis,
+        flops_breakdown=cost.breakdown,
+        variant=variant,
+        device=str(dev),
+        card=card_info(),
+        ok=True,
+    )
+    return record
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default=None)
+    ap.add_argument("--shape", default=None)
+    ap.add_argument("--mesh", default="single", choices=["single", "multi", "both"])
+    ap.add_argument("--all", action="store_true")
+    ap.add_argument("--force", action="store_true")
+    ap.add_argument("--skip-calibration", action="store_true")
+    ap.add_argument("--link-bw", type=float, required=True,
+                    help="bytes per second of one link, the collective term's rate")
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    args = ap.parse_args(argv)
+
+    meshes = ["single", "multi"] if args.mesh == "both" else [args.mesh]
+    if len(meshes) > 1 or args.all:
+        # one fake process group per process: each mesh size in a child
+        jobs = [(name, shape) for name, arch in sorted(all_archs().items()) for shape in cells(arch)] \
+            if args.all else [(args.arch, args.shape)]
+        return _fan_out(args, jobs, meshes)
+    if not (args.arch and args.shape):
+        ap.error("--arch and --shape are required without --all")
+    tag = f"{args.arch} x {args.shape} x {meshes[0]}"
+    try:
+        rec = run_cell(
+            args.arch, args.shape, meshes[0], link_bw=args.link_bw,
+            force=args.force, skip_calibration=args.skip_calibration,
+            device=args.device,
+        )
+    except Exception as e:  # the CLI's boundary: report the cell, exit non-zero
+        traceback.print_exc()
+        print(f"[FAIL] {tag}: {e}", flush=True)
+        return 1
+    peak = rec["memory_analysis"].get("peak_allocated_bytes")
+    print(
+        f"[OK] {tag}: flops/dev={rec['hlo_flops']:.3e} "
+        f"bytes/dev={rec['hlo_bytes']:.3e} coll={rec['collective_bytes']:.3e} "
+        f"bottleneck={rec['bottleneck']} state_bytes={rec['bytes_per_device']:.0f} "
+        f"peak_allocated={peak} (run {rec['lower_seconds']}s, calibration {rec['compile_seconds']}s)",
+        flush=True,
+    )
+    return 0
+
+
+def _fan_out(args, jobs, meshes) -> int:
+    """Run each (arch, shape, mesh) cell in a child process of this CLI
+    (a process holds one fake process group), and report the failures."""
+    import sys
+
+    failures = []
+    for arch_name, shape_name in jobs:
+        for m in meshes:
+            cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch_name,
+                   "--shape", shape_name, "--mesh", m, "--link-bw", repr(args.link_bw),
+                   "--device", args.device]
+            cmd += ["--force"] if args.force else []
+            cmd += ["--skip-calibration"] if args.skip_calibration else []
+            if subprocess.run(cmd).returncode != 0:
+                failures.append(f"{arch_name} x {shape_name} x {m}")
+    if failures:
+        print(f"{len(failures)} dry-run cells failed: {failures}", flush=True)
+        return 1
+    print(f"all {len(jobs) * len(meshes)} dry-run cells ran OK", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

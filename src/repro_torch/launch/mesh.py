@@ -14,16 +14,24 @@
    every collective.
 
 The pod is a required argument everywhere (the port has no default pod
-and no default data-centre link rate).  Device meshes
-(``make_production_mesh``) belong to the dry-run and are not ported.
+and no default data-centre link rate).
+
+The dry-run's device meshes: :func:`make_production_mesh` builds the
+logical production mesh, (16, 16) ("data", "model") on one pod or
+(2, 16, 16) ("pod", "data", "model") on two, as a ``DeviceMesh`` over the
+initialised default process group; :func:`fake_production_mesh` first
+initialises a fake process group of 256 or 512 ranks (this process is rank
+0, and collectives move no data), the counterpart of JAX's
+``--xla_force_host_platform_device_count=512``.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
-from repro_torch.device import DeviceLike
+from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.network.allocation import MachineState, Placement
 from repro_torch.network.collectives import AxisAssignment, CollectiveCostModel, assign_axes
 from repro_torch.network.fabric import (
@@ -37,7 +45,51 @@ from repro_torch.network.mapping import RankMapping, map_ranks
 from repro_torch.network.netsim import simulate_traffic
 from repro_torch.network.placement import best_placement
 
-__all__ = ["MeshPlan", "multi_pod_cost_model", "plan_axes", "plan_slice"]
+__all__ = [
+    "MeshPlan",
+    "fake_production_mesh",
+    "make_production_mesh",
+    "multi_pod_cost_model",
+    "plan_axes",
+    "plan_slice",
+    "production_mesh_shape",
+]
+
+
+def production_mesh_shape(multi_pod: bool = False) -> Dict[str, int]:
+    """Axis name -> size of the logical production mesh."""
+    if multi_pod:
+        return {"pod": 2, "data": 16, "model": 16}
+    return {"data": 16, "model": 16}
+
+
+def make_production_mesh(*, multi_pod: bool = False, device: DeviceLike = "cuda"):
+    """The production ``DeviceMesh`` on ``device``'s type, over the default
+    process group (which must have 256 or 512 ranks)."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    axes = production_mesh_shape(multi_pod)
+    dev = resolve_device(device)
+    return init_device_mesh(dev.type, tuple(axes.values()), mesh_dim_names=tuple(axes))
+
+
+def fake_production_mesh(multi_pod: bool = False, device: DeviceLike = "cuda"):
+    """:func:`make_production_mesh` on a fake process group of the mesh's
+    size, initialised here as the default group with this process as rank
+    0.  A default group that is already initialised must be a fake one of
+    that size."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    ranks = math.prod(production_mesh_shape(multi_pod).values())
+    if not dist.is_initialized():
+        dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=ranks)
+    elif dist.get_backend() != "fake" or dist.get_world_size() != ranks:
+        raise RuntimeError(
+            f"the default process group ({dist.get_backend()}, {dist.get_world_size()} ranks) "
+            f"is not a fake group of {ranks} ranks"
+        )
+    return make_production_mesh(multi_pod=multi_pod, device=device)
 
 
 @dataclass(frozen=True)

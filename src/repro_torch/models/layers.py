@@ -284,6 +284,54 @@ def attention_decode(
     return out.reshape(B, 1, H, hd).to(q.dtype)
 
 
+def lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``table[ids]``.  For DTensors (the dry-run) each rank looks up its
+    shard of the ids in the whole table, so the rows keep the ids'
+    placements (DTensor's own rule for a sharded index gathers the ids);
+    the table's gradient is partial over the mesh dimensions that shard
+    the ids."""
+    if not hasattr(table, "placements"):
+        return table[ids]
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = ids.device_mesh
+    whole = [Replicate()] * mesh.ndim
+    grad = [Partial() if pl.is_shard() else Replicate() for pl in ids.placements]
+    run = local_map(lambda t, i: t[i], out_placements=list(ids.placements),
+                    in_placements=(whole, list(ids.placements)),
+                    in_grad_placements=(grad, list(ids.placements)),
+                    device_mesh=mesh)
+    return run(table.redistribute(mesh, whole), ids)
+
+
+def attention_on_shards(attend, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        cfg: ArchConfig) -> torch.Tensor:
+    """``attend`` (``attention_torch`` or ``attention_banded``) on DTensor
+    q, k, v, run on each rank's shards.  Attention is independent across
+    batch rows and heads, so the KV heads are expanded to the query heads
+    and q, k, v are laid out alike: batch shards kept, head shards kept
+    where the mesh dimension divides the heads, every other dimension
+    replicated.  DTensor cannot run the plain function's einsums itself: they
+    merge a batch dimension sharded over one mesh dimension with a head
+    dimension sharded over another."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    H = q.shape[2]
+    k, v = _expand_kv(k, H), _expand_kv(v, H)
+    mesh = q.device_mesh
+    layout = [  # a list: local_map reads a tuple as one placement list per output
+        pl if isinstance(pl, Shard) and (pl.dim == 0 or (pl.dim == 2 and H % mesh.size(i) == 0))
+        else Replicate()
+        for i, pl in enumerate(q.placements)
+    ]
+    q, k, v = (t.redistribute(mesh, layout) for t in (q, k, v))
+    run = local_map(lambda q_, k_, v_: attend(q_, k_, v_, cfg), out_placements=layout,
+                    in_placements=(layout, layout, layout), device_mesh=mesh)
+    return run(q, k, v)
+
+
 def attention_output(p: Params, ctx: torch.Tensor) -> torch.Tensor:
     """einsum("bshk,hkd->bsd") as one matmul."""
     H, hd, d = p["wo"].shape
@@ -300,7 +348,10 @@ def run_attention(
     """Full attention sublayer for train/prefill; ``impl="kernel"`` runs
     the flash kernel."""
     q, k, v = qkv_project(p, x, cfg, positions)
-    if cfg.sliding_window is not None and x.shape[1] > cfg.sliding_window:
+    if hasattr(q, "placements"):  # DTensors (the dry-run)
+        banded = cfg.sliding_window is not None and x.shape[1] > cfg.sliding_window
+        ctx = attention_on_shards(attention_banded if banded else attention_torch, q, k, v, cfg)
+    elif cfg.sliding_window is not None and x.shape[1] > cfg.sliding_window:
         ctx = attention_banded(q, k, v, cfg)
     elif impl == "kernel":
         from repro_torch.kernels.attention import ops as flash_ops

@@ -17,7 +17,7 @@ once.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import torch
 import torch.utils.checkpoint
@@ -42,7 +42,13 @@ def _token_ce(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     logits = logits.float()
     m = logits.amax(dim=-1, keepdim=True).detach()
     logz = torch.log(torch.exp(logits - m).sum(dim=-1)) + m[..., 0]
-    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    if hasattr(logits, "placements"):
+        # a DTensor (the dry-run): the gold logit as a sum over the vocab, as
+        # JAX's one-hot; DTensor's gather along a sharded vocab is unsound
+        hit = torch.arange(logits.shape[-1], device=logits.device) == targets[..., None]
+        gold = (logits * hit).sum(dim=-1)
+    else:
+        gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
     return logz - gold
 
 
@@ -55,10 +61,13 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
 class Model:
     cfg: ArchConfig
     impl: str = "torch"  # torch | kernel
-    remat: str = "block"  # block | none (JAX's "dots" serves the dry-run only)
+    remat: str = "block"  # block | dots | none
     # chunked cross-entropy: logits and CE over sequence chunks of this size,
     # each chunk's logits recomputed in the backward pass
     loss_chunk: Optional[int] = None
+    # ndim -> DTensor placements: the loss redistributes DTensor logits to
+    # them, so that the vocab-parallel CE stays sharded (set by the dry-run)
+    logits_sharding: Optional[Callable[[int], Any]] = None
 
     # -- parameters ----------------------------------------------------------
     def init(self, seed: int, device: DeviceLike = "cuda") -> PyTree:
@@ -67,6 +76,11 @@ class Model:
         dev = resolve_device(device)
         gen = torch.Generator(device=dev).manual_seed(seed)
         return _family_module(self.cfg).init_params(gen, self.cfg, dev)
+
+    def init_shapes(self) -> PyTree:
+        """The parameter tree on the meta device: shapes and dtypes, nothing
+        allocated (the dry-run's counterpart of ``jax.eval_shape``)."""
+        return _family_module(self.cfg).init_params(torch.Generator(), self.cfg, torch.device("meta"))
 
     # -- forward / loss --------------------------------------------------------
     def forward(self, params: PyTree, batch: Dict[str, torch.Tensor]):
@@ -85,6 +99,13 @@ class Model:
             return (P - 1, P - 1 + S - 1), batch["tokens"][:, 1:]
         return (0, seq_len - 1), batch["tokens"][:, 1:]
 
+    def _constrain(self, logits: torch.Tensor) -> torch.Tensor:
+        """DTensor logits redistributed to ``logits_sharding`` (JAX's
+        ``with_sharding_constraint``); other logits as they are."""
+        if self.logits_sharding is None or not hasattr(logits, "placements"):
+            return logits
+        return logits.redistribute(logits.device_mesh, self.logits_sharding(logits.ndim))
+
     @staticmethod
     def _with_aux(ce: torch.Tensor, aux: Dict[str, torch.Tensor]):
         loss = ce
@@ -96,6 +117,7 @@ class Model:
         if self.loss_chunk is not None:
             return self._chunked_loss(params, batch)
         logits, aux = self.forward(params, batch)
+        logits = self._constrain(logits)
         (lo, hi), targets = self._targets_and_hidden_slice(batch, logits.shape[1])
         ce = cross_entropy(logits[:, lo:hi], targets)
         return self._with_aux(ce, aux)
@@ -114,7 +136,8 @@ class Model:
         C = min(self.loss_chunk, T)
 
         def head_ce(h_c, t_c):
-            return _token_ce(transformer.logits_from_hidden(params, self.cfg, h_c), t_c).sum()
+            logits = self._constrain(transformer.logits_from_hidden(params, self.cfg, h_c))
+            return _token_ce(logits, t_c).sum()
 
         if torch.is_grad_enabled():
             chunk_ce = lambda h_c, t_c: torch.utils.checkpoint.checkpoint(
@@ -130,6 +153,10 @@ class Model:
     # -- serving ---------------------------------------------------------------
     def init_cache(self, batch: int, max_len: int, device: DeviceLike = "cuda") -> PyTree:
         return _family_module(self.cfg).init_cache(self.cfg, batch, max_len, resolve_device(device))
+
+    def cache_shapes(self, batch: int, max_len: int) -> PyTree:
+        """The decode cache on the meta device (shapes and dtypes only)."""
+        return _family_module(self.cfg).init_cache(self.cfg, batch, max_len, torch.device("meta"))
 
     def decode_step(
         self,

@@ -14,12 +14,16 @@ prepend precomputed patch embeddings (B, P, d) on a full forward, and
 decode takes tokens only.
 
 ``remat="block"`` recomputes each layer body in the backward pass, as JAX's
-``jax.checkpoint`` around the scan body does; it acts only while autograd
-records, so a forward under ``inference_mode`` (serving) is untouched.
+``jax.checkpoint`` around the scan body does, and ``remat="dots"`` saves
+the weight products' outputs and recomputes the rest, as JAX's
+``checkpoint_dots_with_no_batch_dims`` policy does; both act only while
+autograd records, so a forward under ``inference_mode`` (serving) is
+untouched.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Callable, Dict, List, Tuple
 
 import torch
@@ -34,6 +38,7 @@ from .layers import (
     init_attention,
     init_mlp,
     init_norm,
+    lookup,
     run_attention,
     run_attention_decode,
 )
@@ -65,20 +70,37 @@ def unstack(layers: PyTree, lead: int = 1) -> List[PyTree]:
     return list(layers.flatten(0, lead - 1).unbind(0))
 
 
+def _save_dots(ctx, op, *args, **kwargs):
+    """The policy of ``remat="dots"``, JAX's
+    ``checkpoint_dots_with_no_batch_dims``: keep the outputs of products
+    with no batch dimension (the weight products, which reach ``mm``,
+    ``addmm`` or a ``bmm`` of batch 1, as musicgen's codebook-head einsum
+    does) and recompute everything else (attention scores, expert-batched
+    products, elementwise work)."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    aten = torch.ops.aten
+    if op in (aten.mm.default, aten.addmm.default) or (
+            op is aten.bmm.default and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
 def remat_body(body: Callable, remat: str) -> Callable:
-    """``body`` under a remat policy: ``"block"`` wraps it in non-reentrant
-    ``torch.utils.checkpoint`` while autograd records (its activations are
-    recomputed in the backward pass), ``"none"`` keeps them."""
-    if remat == "dots":
-        raise NotImplementedError(
-            "remat='dots' (checkpoint_dots_with_no_batch_dims) serves the dry-run, "
-            "which the port does not have yet"
-        )
-    if remat not in ("block", "none"):
-        raise ValueError(f"unknown remat policy {remat!r} (block | none)")
+    """``body`` under a remat policy, while autograd records: ``"block"``
+    wraps it in non-reentrant ``torch.utils.checkpoint`` (its activations
+    are recomputed in the backward pass), ``"dots"`` checkpoints it
+    selectively, saving the weight products' outputs (:func:`_save_dots`),
+    and ``"none"`` keeps every activation."""
+    if remat not in ("block", "dots", "none"):
+        raise ValueError(f"unknown remat policy {remat!r} (block | dots | none)")
     if remat == "none" or not torch.is_grad_enabled():
         return body
-    return lambda *args: torch.utils.checkpoint.checkpoint(body, *args, use_reentrant=False)
+    context_fn = torch.utils.checkpoint.noop_context_fn
+    if remat == "dots":
+        context_fn = functools.partial(torch.utils.checkpoint.create_selective_checkpoint_contexts, _save_dots)
+    return lambda *args: torch.utils.checkpoint.checkpoint(
+        body, *args, use_reentrant=False, context_fn=context_fn)
 
 
 # ---------------------------------------------------------------------------
@@ -176,7 +198,7 @@ def embed_inputs(
     if cfg.frontend == "audio":
         # stub frontend: precomputed EnCodec frame embeddings
         return batch["frame_embeds"].to(dtype)
-    x = p["embed"][batch["tokens"]].to(dtype)
+    x = lookup(p["embed"], batch["tokens"]).to(dtype)
     if cfg.frontend == "vlm" and not decode:
         # stub frontend: precomputed InternViT patch embeddings prepended
         # (full forward only: in decode the patches are already in the cache)

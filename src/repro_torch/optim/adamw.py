@@ -13,6 +13,11 @@ returns the same tensors: at full width one float32 temporary of a stacked
 leaf is gigabytes (zamba2-2.7b's ``in_proj`` has 1.44 B elements), so the
 elementwise update runs over flat spans of at most ``SPAN`` elements of each
 leaf, which gives the same numbers with temporaries of one span.
+
+DTensor leaves (the dry-run) are updated on their local shards, which must
+have the same placements for a parameter, its gradient and its moments;
+the global norm sums each shard's squares and all-reduces them over the
+mesh dimensions that shard the leaf.
 """
 
 from __future__ import annotations
@@ -80,13 +85,33 @@ def _spans(t: torch.Tensor) -> Iterator[torch.Tensor]:
         yield flat[start : start + SPAN]
 
 
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard (a view of its storage), or ``t``."""
+    return t.to_local() if hasattr(t, "placements") else t
+
+
+def _sum_squares(g: torch.Tensor) -> torch.Tensor:
+    """The float32 sum of squares of ``g``, span by span; for a DTensor,
+    the local shard's, all-reduced over the mesh dimensions sharding it."""
+    total = None
+    for span in _spans(_local(g)):
+        sq = torch.sum(torch.square(span.float()))
+        total = sq if total is None else total + sq
+    if hasattr(g, "placements"):
+        from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+        partial = [Partial() if isinstance(pl, Shard) else Replicate() for pl in g.placements]
+        total = DTensor.from_local(total, g.device_mesh, partial, run_check=False)
+        total = total.redistribute(g.device_mesh, [Replicate()] * len(partial)).to_local()
+    return total
+
+
 def global_norm(grads: PyTree) -> torch.Tensor:
     """sqrt of the sum of float32 squares over every leaf."""
     total = None
     for g in tree.leaves(grads):
-        for span in _spans(g):
-            sq = torch.sum(torch.square(span.float()))
-            total = sq if total is None else total + sq
+        sq = _sum_squares(g)
+        total = sq if total is None else total + sq
     return torch.sqrt(total)
 
 
@@ -119,6 +144,11 @@ def update(
                                   tree.leaves(state.v), strict=True):
         if g.shape != p.shape:
             raise ValueError(f"{path}: gradient shape {tuple(g.shape)} != parameter {tuple(p.shape)}")
+        if hasattr(p, "placements"):
+            if not all(getattr(t, "placements", None) == p.placements for t in (g, m, v)):
+                raise ValueError(f"{path}: a DTensor update needs one placement for the "
+                                 "parameter, its gradient and its moments")
+            p, g, m, v = (_local(t) for t in (p, g, m, v))
         if not (p.is_contiguous() and m.is_contiguous() and v.is_contiguous()):
             raise ValueError(f"{path}: the in-place update needs contiguous parameters and moments")
         decay = bool(cfg.weight_decay) and decayed(path, p)

@@ -12,7 +12,11 @@ opt_state, metrics)``:
 * the remat policy is the model's (each layer recomputed in the backward
   pass with ``remat="block"``);
 * the AdamW update runs in float32 with global-norm clipping, in place
-  (``repro_torch.optim.adamw``).
+  (``repro_torch.optim.adamw``);
+* ``grad_placements`` (a tree of DTensor placements like the parameters,
+  JAX's ``grad_shardings``) redistributes each microbatch's DTensor
+  gradients, and the accumulators, to those placements, so that partial
+  gradients are reduce-scattered to the parameters' shards (the dry-run).
 
 The train step takes the model's ``"torch"`` paths, as the JAX trainer takes
 ``attn_impl="xla"``: the hand-written kernels have no backward, so a model
@@ -22,7 +26,7 @@ takes either.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -45,14 +49,52 @@ def _grads(model: Model, params: PyTree, batch: Dict[str, torch.Tensor]
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}, list(grads)
 
 
+def _rows(v: torch.Tensor, n: int, i: int) -> torch.Tensor:
+    """Piece ``i`` of ``n`` of ``v`` along axis 0.  A DTensor is cut on each
+    rank's shard, so the piece keeps the batch's placements and no rank
+    sends rows to another (a slice of its global rows would gather them)."""
+    if not hasattr(v, "placements"):
+        k = v.shape[0] // n
+        return v[i * k : (i + 1) * k]
+    from torch.distributed.tensor import DTensor
+
+    local = v.to_local()
+    k = local.shape[0] // n
+    shape = (v.shape[0] // n, *v.shape[1:])
+    return DTensor.from_local(local[i * k : (i + 1) * k], v.device_mesh, v.placements, run_check=False,
+                              shape=shape, stride=torch.empty(shape, device="meta").stride())
+
+
 def _microbatch(batch: Dict[str, torch.Tensor], n: int, i: int) -> Dict[str, torch.Tensor]:
     """Piece ``i`` of ``n`` of every batch leaf along axis 0 (of
     ``shape[0] // n`` rows, as JAX's ``dynamic_slice_in_dim``)."""
-    return {k: v[i * (v.shape[0] // n) : (i + 1) * (v.shape[0] // n)] for k, v in batch.items()}
+    return {k: _rows(v, n, i) for k, v in batch.items()}
+
+
+def _constrain(grads: List[torch.Tensor], placements) -> List[torch.Tensor]:
+    """Each DTensor gradient redistributed to its entry of ``placements``
+    (a list in ``tree.leaves`` order, or None)."""
+    if placements is None:
+        return grads
+    return [g.redistribute(g.device_mesh, pl) for g, pl in zip(grads, placements, strict=True)]
+
+
+def _zeros_f32(p: torch.Tensor) -> torch.Tensor:
+    """A float32 accumulator like ``p``: for a DTensor, one of its
+    placements built from a zero local shard, so that no op takes ``p``
+    itself (the dry-run gathers a parameter for every op that does)."""
+    if hasattr(p, "placements"):
+        from torch.distributed.tensor import DTensor
+
+        local = torch.zeros(p.to_local().shape, dtype=torch.float32, device=p.device)
+        return DTensor.from_local(local, p.device_mesh, p.placements, run_check=False,
+                                  shape=p.shape, stride=p.stride())
+    return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
 
 
 def make_train_step(
-    model: Model, opt_cfg: adamw.AdamWConfig, microbatches: int = 1
+    model: Model, opt_cfg: adamw.AdamWConfig, microbatches: int = 1,
+    grad_placements: Optional[PyTree] = None,
 ) -> Callable:
     if model.impl != "torch":
         raise ValueError(
@@ -62,15 +104,21 @@ def make_train_step(
     if microbatches < 1:
         raise ValueError(f"microbatches must be >= 1, got {microbatches}")
 
+    placements = None
+    if grad_placements is not None:
+        placements = tree.leaves(grad_placements, is_leaf=lambda n: isinstance(n, tuple))
+
     def train_step(params, opt_state, batch):
         if microbatches == 1:
             loss, metrics, grads = _grads(model, params, batch)
+            grads = _constrain(grads, placements)
         else:
             flat = tree.leaves(params)
-            acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device) for p in flat]
+            acc = _constrain([_zeros_f32(p) for p in flat], placements)
             l_sum = torch.zeros((), dtype=torch.float32, device=flat[0].device)
             for i in range(microbatches):
                 loss, _, grads = _grads(model, params, _microbatch(batch, microbatches, i))
+                grads = _constrain(grads, placements)
                 for a, g in zip(acc, grads):
                     a.add_(g)
                 del grads

@@ -11,7 +11,7 @@ NamedTuple field as ``.field`` and the sequence index, so that
 
 from __future__ import annotations
 
-from typing import Any, Callable, List, Tuple
+from typing import Any, Callable, List, Optional, Tuple
 
 PyTree = Any
 Path = Tuple[Any, ...]
@@ -22,28 +22,34 @@ def _is_namedtuple(node) -> bool:
     return isinstance(node, tuple) and hasattr(node, "_fields")
 
 
-def leaves_with_path(tree: PyTree, path: Path = ()) -> List[Tuple[Path, Any]]:
-    """(path, leaf) pairs in JAX's flattening order."""
+def leaves_with_path(tree: PyTree, path: Path = (), is_leaf: Optional[Callable] = None
+                     ) -> List[Tuple[Path, Any]]:
+    """(path, leaf) pairs in JAX's flattening order; a node for which
+    ``is_leaf`` is true is a leaf, whatever its type."""
+    if is_leaf is not None and is_leaf(tree):
+        return [(path, tree)]
     if isinstance(tree, dict):
-        return [item for k in sorted(tree) for item in leaves_with_path(tree[k], path + (k,))]
+        return [item for k in sorted(tree) for item in leaves_with_path(tree[k], path + (k,), is_leaf)]
     if _is_namedtuple(tree):
         return [item for f in tree._fields
-                for item in leaves_with_path(getattr(tree, f), path + (f".{f}",))]
+                for item in leaves_with_path(getattr(tree, f), path + (f".{f}",), is_leaf)]
     if isinstance(tree, (tuple, list)):
-        return [item for i, x in enumerate(tree) for item in leaves_with_path(x, path + (i,))]
+        return [item for i, x in enumerate(tree) for item in leaves_with_path(x, path + (i,), is_leaf)]
     return [(path, tree)]
 
 
-def leaves(tree: PyTree) -> List[Any]:
-    return [leaf for _, leaf in leaves_with_path(tree)]
+def leaves(tree: PyTree, is_leaf: Optional[Callable] = None) -> List[Any]:
+    return [leaf for _, leaf in leaves_with_path(tree, is_leaf=is_leaf)]
 
 
-def unflatten(tree: PyTree, new_leaves) -> PyTree:
+def unflatten(tree: PyTree, new_leaves, is_leaf: Optional[Callable] = None) -> PyTree:
     """A tree of ``tree``'s structure holding ``new_leaves`` (in the order
-    ``leaves(tree)`` gives)."""
+    ``leaves(tree, is_leaf)`` gives)."""
     it = iter(new_leaves)
 
     def build(node):
+        if is_leaf is not None and is_leaf(node):
+            return next(it)
         if isinstance(node, dict):
             built = {k: build(node[k]) for k in sorted(node)}
             return {k: built[k] for k in node}

@@ -641,3 +641,51 @@ def test_planner_rows_on_the_card_equal_cpu(cuda, arch):
     assert [c.row() for c in card.table] == [c.row() for c in cpu.table]
     np.testing.assert_allclose([c.simulated_slowdown for c in card.table],
                                [c.simulated_slowdown for c in cpu.table], rtol=1e-9, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# The distributed layer: Strassen-Winograd and the collective-matmul rings
+# ---------------------------------------------------------------------------
+def test_strassen_depth2_on_the_card_matches_float64(cuda):
+    """Depth-2 Strassen-Winograd at n = 2048, float32 without TF32, within
+    1e-4 of the float64 product relative to its largest entry
+    (benchmarks/matmul_scaling.py:34-35)."""
+    from repro_torch.core.strassen import strassen_winograd
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    a = torch.randn(2048, 2048, generator=gen, device="cuda")
+    b = torch.randn(2048, 2048, generator=gen, device="cuda")
+    want = a.double() @ b.double()
+    got = strassen_winograd(a, b, 2)
+    assert got.dtype == torch.float32
+    assert float((got.double() - want).abs().max() / want.abs().max()) < 1e-4
+
+
+def test_collective_matmul_rings_on_a_one_rank_nccl_group(cuda):
+    """Both rings on a one-rank NCCL group against x @ w within 1e-5
+    relative; no exchange, gather or scatter is traced; the group is
+    destroyed after."""
+    import socket
+
+    import torch.distributed as dist
+
+    from repro_torch.analysis.roofline import CollectiveTrace
+    from repro_torch.distributed.collective_matmul import allgather_matmul, matmul_reducescatter
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=0, world_size=1,
+                            device_id=torch.device("cuda", torch.cuda.current_device()))
+    try:
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        x = torch.randn(512, 256, generator=gen, device="cuda")
+        w = torch.randn(256, 384, generator=gen, device="cuda")
+        want = x @ w
+        with CollectiveTrace() as trace:
+            for got in (allgather_matmul(x, w), matmul_reducescatter(x, w)):
+                assert float((got - want).abs().max() / want.abs().max()) < 1e-5
+        assert trace.ops == []
+    finally:
+        dist.destroy_process_group()
+    assert not dist.is_initialized()

@@ -184,11 +184,50 @@ def test_remat_block_gradients_equal_remat_none(name):
     assert max(float((a - b).abs().max()) for a, b in zip(g1, g2)) < 1e-6
 
 
-def test_remat_dots_is_not_ported():
-    _, tcfg = f32_pair("granite-3-8b")
-    model = build_model(tcfg, remat="dots")
-    with pytest.raises(NotImplementedError, match="dots"):
-        model.loss(model.init(0, device="cpu"), {"tokens": torch.zeros(1, 4, dtype=torch.long)})
+@pytest.mark.parametrize("name", TRAIN_ARCHS + MORE_ARCHS)
+def test_remat_dots_gives_block_loss_and_gradients(name):
+    """remat="dots" (selective checkpointing of the weight products) gives
+    remat="block"'s loss and gradients within the float32 tolerance."""
+    _, tcfg = f32_pair(name)
+    params = build_model(tcfg).init(0, device="cpu")
+    batch = torch_batch(np_batch(tcfg, 2, 16, seed=3))
+    l1, g1 = _loss_grads(build_model(tcfg, remat="dots"), params, batch)
+    l2, g2 = _loss_grads(build_model(tcfg, remat="block"), params, batch)
+    assert_close(l1.detach(), l2.detach())
+    for a, b in zip(g1, g2):
+        assert_close(a, b)
+
+
+@pytest.mark.parametrize("name", ["granite-3-8b", "mixtral-8x7b", "musicgen-large"])
+def test_remat_dots_gradients_match_jax(name):
+    """The port's remat="dots" gradients against JAX's remat="dots"
+    (checkpoint_dots_with_no_batch_dims) on the same parameters and batch,
+    within the float32 tolerance."""
+    jcfg, tcfg = f32_pair(name)
+    jmodel, jparams, _ = jax_setup(jcfg, 0, 2, 16)
+    jmodel = dataclasses.replace(jmodel, remat="dots")
+    np_b = np_batch(jcfg, 2, 16, seed=4)
+    (want_loss, _), want = jax.jit(jax.value_and_grad(jmodel.loss, has_aux=True))(jparams, jax_batch(np_b))
+    loss, grads = _loss_grads(build_model(tcfg, remat="dots"), to_torch(jparams), torch_batch(np_b))
+    assert_close(loss.detach(), want_loss)
+    for g, w in zip(grads, jax.tree.leaves(want), strict=True):
+        assert_close(g, w)
+
+
+def test_remat_dots_saves_the_weight_products():
+    """The policy saves mm, addmm and a bmm of batch 1, and recomputes a
+    batched bmm and elementwise ops."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    from repro_torch.models.transformer import _save_dots
+
+    aten = torch.ops.aten
+    save, redo = CheckpointPolicy.MUST_SAVE, CheckpointPolicy.PREFER_RECOMPUTE
+    x2, x3 = torch.zeros(4, 4), torch.zeros(1, 4, 4)
+    assert _save_dots(None, aten.mm.default, x2, x2) == save
+    assert _save_dots(None, aten.addmm.default, x2, x2, x2) == save
+    assert _save_dots(None, aten.bmm.default, x3, x3) == save
+    assert _save_dots(None, aten.bmm.default, torch.zeros(2, 4, 4), torch.zeros(2, 4, 4)) == redo
+    assert _save_dots(None, aten.mul.Tensor, x2, x2) == redo
 
 
 @pytest.mark.parametrize("name", TRAIN_ARCHS + MORE_ARCHS)
