@@ -126,7 +126,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    paper's comparison: mean simulated slowdown, bisection efficiency,
    makespan), the same schedules on both; (d) ``map_ranks`` of an
    (8, 8, 8, 8, 2) halo job on Mira's node torus, its 3,841 strategies
-   scored in chunks on the card, the same strategy and score on both.
+   scored in chunks on the card, its winner and identity mapping
+   re-scored on the CPU path, and the whole catalogue of an (8, 8, 4, 4,
+   2) job on both, the same strategy and score.
    Every allocation pass must have been dispatched on the card, and an
    ``allocation`` JSON line holds the numbers.
 8. The fleet planner (``repro_torch.launch.planner``; no kernel of its
@@ -155,6 +157,26 @@ Phases, in order; any failure raises and the script exits non-zero:
    and the local shards built, its peak memory fits the card, and its
    roofline terms, per-axis collective bytes and times are printed, then
    a ``distributed`` JSON line.
+10. The rest of the network engines (no kernel of their own), each
+   sub-phase on the card and through the port's CPU path, any difference
+   failing the run: (a) ``compare_routing`` (DOR against the
+   minimal-adaptive router) on Mira's current and proposed partitions of
+   8 and 16 midplanes at node level, bisection pairing (recovered fraction
+   0.0, the paper's argument) and a hotspot line (recovered > 0), the
+   adaptive paths equal on both; (b) the utilization timeline of phase
+   6b's Mira 8-midplane pairing drain and of the hotspot line's adaptive
+   drain (equal steps and active counts, samples within 1e-9 relative);
+   (c) contention attribution and its dashboard on the 32^3 torus holding
+   spilling jobs (cross traffic > 0), and ``scheduler_metrics`` of phase
+   7b's card log equal to the CPU log's and to the card's replay's; (d)
+   HyperX: minimal and DAL routing of all-to-all on H(16, 16, 4)
+   (1,047,552 messages), ``compare_fabric_routing`` on H(16, 4) and H(8,
+   8), the advisor and bisection tables on H(16, 4), a seeded queue there
+   (the same log on both) and ``plan_model`` of mixtral on it (rows
+   bit-equal).  Each sub-phase prints its wall time and, for one card call
+   of it under torch.profiler, the device's idle share; every new pass
+   must have been dispatched on the card; an ``engines`` JSON line holds
+   the numbers.
 
 The line before the last is a JSON object with each kernel's launches on the
 main path, error, times and bound; the last line names the device.  With no
@@ -285,6 +307,9 @@ SCHEDULER_SCENARIO = dict(machine=(32, 32, 32), jobs=120, seed=2, burst_gap=30.0
 # (c): a seeded stream of midplane jobs on Mira, sizes from its scheduler table.
 QUEUE_JOBS, QUEUE_SIZES, QUEUE_SEED = 24, (1, 2, 4, 8, 16, 24, 32), 7
 MAP_JOB = ((16, 16, 12, 8, 2), (8, 8, 8, 8, 2))  # (d): (machine, oriented job), halo traffic
+# (d)'s check against the CPU path runs this job's whole catalogue on both:
+# MAP_JOB's takes the CPU path 26-63 s (PERF.md §5), the script's time limit.
+MAP_JOB_CPU = (8, 8, 4, 4, 2)
 
 # Phase 8: the fleet planner on Mira at 16 midplanes (train_4k, torus mode,
 # 2 GB/s links, the H100 profile), tests/test_golden_tables.py's models.
@@ -312,6 +337,20 @@ DRYRUN_CELLS = [("granite-3-8b", "train_4k", "single"), ("granite-3-8b", "decode
 # H100, the per-GPU rate between the nodes of a DGX H100 cluster.
 DRYRUN_LINK_BW = 50e9
 AVOIDABLE_FLOOR = 1.3  # the paper's avoidable-contention floor: worst / best step time
+
+# Phase 10: the rest of the network engines.  (a) Mira's current and
+# proposed partitions by midplane count (node level), routed by DOR and the
+# minimal-adaptive router; (c) jobs on the 32^3 torus, (job, oriented,
+# offset), four of them spilling (a span w with 2 w - 2 >= 32 routes around
+# the ring through foreign cells) and one not; (d) the HyperX cases.
+ROUTING_MIDPLANES = (8, 16)
+SPILL_MACHINE = (32, 32, 32)
+SPILL_JOBS = [(0, (24, 8, 4), (0, 0, 0)), (1, (8, 8, 4), (24, 0, 0)), (2, (4, 20, 4), (0, 8, 0)),
+              (3, (8, 8, 8), (16, 16, 16)), (4, (4, 4, 18), (8, 8, 8)), (5, (18, 2, 2), (8, 28, 28))]
+HX_ROUTE = (16, 16, 4)  # all-to-all, 1,047,552 messages, minimal and DAL
+HX_PODS = [(16, 4), (8, 8)]  # compare_fabric_routing (examples/hyperx_analysis.py's pod first)
+HX_QUEUE = dict(jobs=40, sizes=(2, 4, 8, 16, 32), seed=5)  # a seeded stream on the (16, 4) pod
+HX_PLAN = ("mixtral-8x7b", 16, "decode_32k")  # (arch, chips, shape) planned on the (16, 4) pod
 
 
 def serve_args(arch: str):
@@ -1716,6 +1755,7 @@ def phase7_allocation(smi: str, card: str = "cuda") -> dict:
     svc, eps_card_cold = scenario_run(card)  # the first run fills the per-device caches
     (svc_warm, eps_card), prof = profile_idle_share(lambda: scenario_run(card))
     svc_cpu, eps_cpu = scenario_run("cpu")
+    out["services"] = (svc, svc_cpu)  # phase 10c derives their metrics; main drops them from the JSON
     check_logs("the 32^3 scenario", svc.log, svc_cpu.log)
     check_logs("the 32^3 scenario, warm", svc_warm.log, svc_cpu.log)
     jobs = svc.result().jobs
@@ -1761,21 +1801,32 @@ def phase7_allocation(smi: str, card: str = "cuda") -> dict:
               f"{t_card:.3f} s, CPU {t_cpu:.3f} s", flush=True)
 
     # (d) The mapping catalogue of a 8192-rank halo job, chunked on the card.
+    # The CPU path re-scores the card's winner and identity mapping there,
+    # and runs the whole catalogue of the smaller MAP_JOB_CPU on both.
     dims, job = MAP_JOB
     mapped, t_card = wall_s(lambda: net.map_ranks(dims, job, (0,) * len(dims), pattern="halo", device=card))
-    ref, t_cpu = wall_s(lambda: net.map_ranks(dims, job, (0,) * len(dims), pattern="halo", device="cpu"))
-    if (mapped.strategy, mapped.score) != (ref.strategy, ref.score) or not np.array_equal(mapped.coords, ref.coords):
-        raise RuntimeError(f"phase 7d: card {mapped.strategy} {mapped.score}, CPU {ref.strategy} {ref.score}")
+    rescored = [net.score_mapping(dims, coords, mapped.rank_traffic, device="cpu")
+                for coords in (mapped.coords, net.identity_mapping(dims, job, (0,) * len(dims)))]
+    if rescored != [mapped.score, mapped.identity_score]:
+        raise RuntimeError(f"phase 7d: card {mapped.score} / {mapped.identity_score}, CPU re-scored {rescored}")
+    small = {dev: wall_s(lambda: net.map_ranks(dims, MAP_JOB_CPU, (0,) * len(dims), pattern="halo", device=dev))
+             for dev in (card, "cpu")}
+    (got, t_small), (ref, t_cpu) = small[card], small["cpu"]
+    if (got.strategy, got.score) != (ref.strategy, ref.score) or not np.array_equal(got.coords, ref.coords):
+        raise RuntimeError(f"phase 7d: {MAP_JOB_CPU}: card {got.strategy} {got.score}, CPU {ref.strategy} {ref.score}")
     messages = int(mapped.rank_traffic[0].shape[0])
     catalogue = sum(1 for _ in net.axis_permutation_orders(job)) + 1  # the orders (identity among them), the snake
     chunk = backend.score_chunk(dims, messages)
     out["map_ranks"] = {"dims": list(dims), "job": list(job), "ranks": mapped.num_ranks, "messages": messages,
                         "candidates": catalogue, "chunk": chunk, "strategy": mapped.strategy,
                         "congestion": mapped.score.congestion, "dilation": mapped.score.dilation,
-                        "identity_congestion": mapped.identity_score.congestion, "card_s": t_card, "cpu_s": t_cpu}
+                        "identity_congestion": mapped.identity_score.congestion, "card_s": t_card,
+                        "cpu_check_job": list(MAP_JOB_CPU), "cpu_check_card_s": t_small, "cpu_s": t_cpu}
     print(f"phase 7d: map_ranks of a {job} halo job ({mapped.num_ranks} ranks, {messages} messages) on {dims}: "
           f"{catalogue} candidates in chunks of {chunk}; {mapped.strategy}, congestion {mapped.score.congestion!r}, "
-          f"dilation {mapped.score.dilation!r}, the same on both; card {t_card:.3f} s, CPU {t_cpu:.3f} s", flush=True)
+          f"dilation {mapped.score.dilation!r}, re-scored on the CPU path; card {t_card:.3f} s.  The {MAP_JOB_CPU} "
+          f"job's whole catalogue: {got.strategy} {got.score}, the same on both; card {t_small:.3f} s, CPU "
+          f"{t_cpu:.3f} s", flush=True)
 
     out["dispatches"] = {f"{name}/{dev}": n for (name, dev), n in sorted(DISPATCHES.items())}
     missing = [name for name in ("cut_scores", "first_fit", "placement_search", "contention_field",
@@ -2015,6 +2066,282 @@ def phase9_distributed(torch, smi: str) -> dict:
             "dryrun": phase9c_dryrun(torch, smi)}
 
 
+def phase10_routing(card: str = "cuda") -> dict:
+    """Phase 10a: compare_routing on Mira's current and proposed partitions
+    at node level, pairing and a hotspot line, on the card and the CPU path:
+    equal adaptive paths, drained makespans within 1e-9 relative."""
+    import numpy as np
+
+    from repro_torch import network as net
+
+    rows = []
+    for mp in ROUTING_MIDPLANES:
+        for side, geom in (("current", MIRA_SCHEDULER_PARTITIONS[mp]), ("proposed", MIRA_PROPOSED_PARTITIONS[mp])):
+            dims = node_dims(geom)
+            for pattern, traffic in (("pairing", net.bisection_pairing(dims)), ("hotspot_line", net.hotspot_line(dims))):
+                cmp, t_card = wall_s(lambda: net.compare_routing(dims, traffic, device=card))
+                ref, t_cpu = wall_s(lambda: net.compare_routing(dims, traffic, device="cpu"))
+                a = net.adaptive_paths(dims, *traffic, device=card)
+                b = net.adaptive_paths(dims, *traffic, device="cpu")
+                if not (np.array_equal(a.link_ids, b.link_ids) and np.array_equal(a.flow_ids, b.flow_ids)):
+                    raise RuntimeError(f"phase 10a: {dims} {pattern}: adaptive paths on the card differ")
+                for x, y in ((cmp.dor_makespan, ref.dor_makespan), (cmp.adaptive_makespan, ref.adaptive_makespan)):
+                    if abs(x - y) > 1e-9 * max(1.0, y):
+                        raise RuntimeError(f"phase 10a: {dims} {pattern}: card {cmp}, CPU {ref}")
+                if pattern == "pairing" and cmp.recovered_fraction != 0.0:
+                    raise RuntimeError(f"phase 10a: {dims}: pairing recovered {cmp.recovered_fraction!r}, not 0.0")
+                if pattern == "hotspot_line" and not cmp.recovered_fraction > 0.0:
+                    raise RuntimeError(f"phase 10a: {dims}: the hotspot line recovered nothing")
+                row = {"midplanes": mp, "side": side, "dims": list(dims), "pattern": pattern,
+                       "subflows": a.n_flows, "entries": int(a.link_ids.shape[0]),
+                       "dor_makespan": cmp.dor_makespan, "adaptive_makespan": cmp.adaptive_makespan,
+                       "recovered_fraction": cmp.recovered_fraction, "card_s": t_card, "cpu_s": t_cpu}
+                rows.append(row)
+                print(f"phase 10a: Mira {mp} midplanes, {side} {dims}, {pattern}: DOR {cmp.dor_makespan!r}, "
+                      f"adaptive {cmp.adaptive_makespan!r}, recovered fraction {cmp.recovered_fraction!r}; "
+                      f"{a.n_flows} subflows, paths equal on both; compare_routing card {t_card:.3f} s, "
+                      f"CPU {t_cpu:.3f} s", flush=True)
+    return {"compare_routing": rows}
+
+
+def phase10_timeline(card: str = "cuda") -> dict:
+    """Phase 10b: the utilization timeline of phase 6b's Mira 8-midplane
+    pairing drain and of its hotspot line under the adaptive router."""
+    import numpy as np
+
+    from repro_torch import network as net
+
+    dims = node_dims(MIRA_SCHEDULER_PARTITIONS[8])
+    rows = []
+    for label, paths in (("pairing, DOR", net.dor_paths(dims, *net.bisection_pairing(dims))),
+                         ("hotspot line, adaptive", net.adaptive_paths(dims, *net.hotspot_line(dims), device="cpu"))):
+        res, t_card = wall_s(lambda: net.simulate_flows(paths, record_utilization=True, device=card))
+        ref, t_cpu = wall_s(lambda: net.simulate_flows(paths, record_utilization=True, device="cpu"))
+        if res.steps != ref.steps or len(res.timeline) != res.steps or \
+                [u.active_flows for u in res.timeline] != [u.active_flows for u in ref.timeline]:
+            raise RuntimeError(f"phase 10b: {label}: {res.steps} / {ref.steps} steps or active counts differ")
+        gap = 0.0
+        for u, v in zip(res.timeline, ref.timeline):
+            got = np.concatenate([[u.start, u.end, u.max_utilization, u.mean_utilization], u.utilization.ravel()])
+            want = np.concatenate([[v.start, v.end, v.max_utilization, v.mean_utilization], v.utilization.ravel()])
+            gap = max(gap, float((np.abs(got - want) / np.maximum(np.abs(want), 1e-300)).max(initial=0.0)))
+        if gap > 1e-9:
+            raise RuntimeError(f"phase 10b: {label}: timeline samples differ by {gap:.3e} relative")
+        row = {"case": label, "dims": list(dims), "steps": res.steps, "makespan": res.makespan,
+               "max_utilization": [u.max_utilization for u in res.timeline],
+               "mean_utilization": [u.mean_utilization for u in res.timeline],
+               "active_flows": [u.active_flows for u in res.timeline], "max_rel_gap": gap,
+               "card_s": t_card, "cpu_s": t_cpu}
+        rows.append(row)
+        print(f"phase 10b: timeline of {label} on {dims}: {res.steps} step(s), max utilization "
+              f"{row['max_utilization']}, active flows {row['active_flows']}, card against CPU {gap:.3e}; "
+              f"card {t_card:.3f} s, CPU {t_cpu:.3f} s", flush=True)
+    return {"timeline": rows}
+
+
+def spill_report(dev: str):
+    """The contention report of SPILL_JOBS on SPILL_MACHINE, on ``dev``."""
+    from repro_torch import network as net
+    from repro_torch import obs
+
+    m = net.MachineState(SPILL_MACHINE, device=dev)
+    for jid, oriented, offset in SPILL_JOBS:
+        m.commit(jid, tuple(sorted(oriented, reverse=True)), oriented, offset)
+    return obs.attribute_contention(m, top_hotspots=8)
+
+
+def phase10_telemetry(card: str = "cuda", scenario_runs=None) -> dict:
+    """Phase 10c: contention attribution and its dashboard on a 32^3
+    machine holding spilling jobs, and ``scheduler_metrics`` of phase 7b's
+    card log against the CPU log's and a replay's (``scenario_runs``; run
+    here when phase 7 did not)."""
+    from repro_torch import network as net
+    from repro_torch import obs
+
+    reports = {}
+    times = {}
+    for dev in (card, "cpu"):
+        reports[dev], times[dev] = wall_s(lambda: spill_report(dev))
+    rep, ref = reports[card], reports["cpu"]
+    same = ([dataclasses.astuple(j) for j in rep.jobs] == [dataclasses.astuple(j) for j in ref.jobs]
+            and rep.max_link_load == ref.max_link_load and rep.cross_load == ref.cross_load
+            and [(h.dim, h.direction, h.cell, h.load) for h in rep.hotspots]
+            == [(h.dim, h.direction, h.cell, h.load) for h in ref.hotspots]
+            and abs(rep.total_load - ref.total_load) <= 1e-12 * ref.total_load)
+    if not same:
+        raise RuntimeError("phase 10c: the attribution on the card differs from the CPU path's")
+    spilling = [j.job_id for j in rep.jobs if j.cross_load > 0.0]
+    if rep.cross_load <= 0.0 or not spilling:
+        raise RuntimeError("phase 10c: no cross traffic on the 32^3 machine")
+    print(obs.render_dashboard(rep), flush=True)
+    if obs.render_dashboard(rep) != obs.render_dashboard(ref):
+        raise RuntimeError("phase 10c: the dashboards differ")
+    print(f"phase 10c: attribution of {len(rep.jobs)} jobs on {SPILL_MACHINE}: cross load {rep.cross_load!r} "
+          f"(jobs {spilling}), total {rep.total_load!r}, peak {rep.max_link_load!r}, the same on both; card "
+          f"{times[card]:.3f} s, CPU {times['cpu']:.3f} s", flush=True)
+
+    if scenario_runs is None:
+        sc = SCHEDULER_SCENARIO
+        scenario = net.generate_scenario(sc["machine"], sc["jobs"], seed=sc["seed"], burst_gap=sc["burst_gap"],
+                                         mean_duration=sc["mean_duration"], failure_rate=sc["failure_rate"],
+                                         repair_delay=sc["repair_delay"])
+        scenario_runs = tuple(net.run_scenario(scenario, net.ContentionScoredPolicy(), backfill=True, device=dev)
+                              for dev in (card, "cpu"))
+    svc, svc_cpu = scenario_runs
+    replayed, t_replay = wall_s(lambda: net.replay_events(svc.machine.dims, net.ContentionScoredPolicy(), svc.log,
+                                                          backfill=True, device=card))
+    snaps = [obs.scheduler_metrics(s).snapshot() for s in (svc, svc_cpu, replayed)]
+    if not snaps[0] == snaps[1] == snaps[2]:
+        raise RuntimeError("phase 10c: scheduler_metrics of the card's log, the CPU's and the replay differ")
+    gauges = snaps[0]["gauges"]
+    print(f"phase 10c: scheduler_metrics of phase 7b's log ({len(svc.log)} records): utilization "
+          f"{gauges['scheduler.utilization']!r}, queue depth max {gauges['scheduler.queue_depth_max']!r}; equal "
+          f"on the card, the CPU path and the card's replay ({t_replay:.3f} s)", flush=True)
+    return {"attribution": rep.to_dict(), "spilling_jobs": spilling, "card_s": times[card],
+            "cpu_s": times["cpu"], "metrics_records": len(svc.log), "replay_s": t_replay,
+            "utilization": gauges["scheduler.utilization"]}
+
+
+def phase10_hyperx(card: str = "cuda") -> dict:
+    """Phase 10d: HyperX routing, routing comparison, the advisor, a queue
+    and the planner on the card against the CPU path."""
+    import numpy as np
+
+    from repro_torch import network as net
+    from repro_torch.launch import planner
+
+    out = {}
+    hx = net.HyperXFabric(HX_ROUTE, link_bw=1.0)
+    a2a = net.all_to_all(HX_ROUTE)
+    out["route_hyperx"] = []
+    for mode in ("minimal", "dal"):
+        loads, t_card = wall_s(lambda: net.route_hyperx(hx, *a2a, mode=mode, device=card))
+        ref, t_cpu = wall_s(lambda: net.route_hyperx(hx, *a2a, mode=mode, device="cpu"))
+        gap = float((np.abs(loads - ref) / np.maximum(ref, 1e-300)).max())
+        if (mode == "minimal" and not np.array_equal(loads, ref)) or gap > 1e-12:
+            raise RuntimeError(f"phase 10d: route_hyperx {mode}: card against CPU {gap:.3e}")
+        peak = net.hyperx_max_link_load(hx, loads)
+        if mode == "minimal" and peak != net.hyperx_all_to_all_max_load(hx):
+            raise RuntimeError(f"phase 10d: minimal all-to-all peak {peak!r}, closed form "
+                               f"{net.hyperx_all_to_all_max_load(hx)!r}")
+        out["route_hyperx"].append({"mode": mode, "messages": int(a2a[0].shape[0]), "max_link_load": peak,
+                                    "max_rel_gap": gap, "card_s": t_card, "cpu_s": t_cpu})
+        print(f"phase 10d: route_hyperx {mode} of all-to-all on H{HX_ROUTE} ({a2a[0].shape[0]} messages): "
+              f"max link load {peak!r}, card against CPU {gap:.3e}; card {t_card:.3f} s, CPU {t_cpu:.3f} s",
+              flush=True)
+    from repro_torch.network import hamming
+
+    half = hamming.lex_cells(HX_ROUTE, net.volume(HX_ROUTE) // 2)
+    cut = net.hamming_cut_of_set(HX_ROUTE, half, device=card)
+    if cut != hx.bisection_links():
+        raise RuntimeError(f"phase 10d: the half-set's cut on the card {cut}, the bisection {hx.bisection_links()}")
+
+    out["compare_fabric_routing"] = []
+    for dims in HX_PODS:
+        pod = net.HyperXFabric(dims, link_bw=1.0)
+        for pattern, traffic in (("all_to_all", net.all_to_all(dims)), ("hotspot_line", net.hotspot_line(dims))):
+            cmp, t_card = wall_s(lambda: net.compare_fabric_routing(pod, traffic, device=card))
+            ref, t_cpu = wall_s(lambda: net.compare_fabric_routing(pod, traffic, device="cpu"))
+            for x, y in ((cmp.dor_makespan, ref.dor_makespan), (cmp.adaptive_makespan, ref.adaptive_makespan)):
+                if abs(x - y) > 1e-9 * max(1.0, y):
+                    raise RuntimeError(f"phase 10d: H{dims} {pattern}: card {cmp}, CPU {ref}")
+            out["compare_fabric_routing"].append({"dims": list(dims), "pattern": pattern,
+                                                  "minimal_makespan": cmp.dor_makespan,
+                                                  "dal_makespan": cmp.adaptive_makespan,
+                                                  "recovered_fraction": cmp.recovered_fraction,
+                                                  "card_s": t_card, "cpu_s": t_cpu})
+            print(f"phase 10d: compare_fabric_routing H{dims} {pattern}: minimal {cmp.dor_makespan!r}, DAL "
+                  f"{cmp.adaptive_makespan!r}, recovered {cmp.recovered_fraction!r}; card {t_card:.3f} s, "
+                  f"CPU {t_cpu:.3f} s", flush=True)
+
+    pod = net.HyperXFabric(HX_PODS[0], link_bw=1.0)
+    adv = {dev: [dataclasses.astuple(net.advise_partition(pod, u, simulate=True, device=dev)) for u in (8, 16, 32)]
+           for dev in (card, "cpu")}
+    tables = {dev: [net.bisection_table(pod, u, device=dev).ranked() for u in (8, 16, 32)] for dev in (card, "cpu")}
+    if adv[card] != adv["cpu"] or tables[card] != tables["cpu"]:
+        raise RuntimeError("phase 10d: the HyperX advisor or bisection tables differ on the card")
+    out["advise_partition"] = [{"units": a[0], "current": list(a[1]), "optimal": list(a[3]),
+                                "predicted_speedup": a[6], "simulated_speedup": a[7]} for a in adv[card]]
+    print(f"phase 10d: advise_partition on H{HX_PODS[0]} at 8, 16, 32 cells: optimal "
+          f"{[a[3] for a in adv[card]]}, predicted {[a[6] for a in adv[card]]}, drained "
+          f"{[a[7] for a in adv[card]]}; bisection tables {tables[card]}; the same on both", flush=True)
+
+    def queue(dev):
+        rng = np.random.default_rng(HX_QUEUE["seed"])
+        jobs, t = [], 0.0
+        for i in range(HX_QUEUE["jobs"]):
+            t += float(rng.exponential(1.0))
+            jobs.append(net.JobRequest(i, int(rng.choice(HX_QUEUE["sizes"])), duration=float(rng.uniform(2.0, 8.0)),
+                                       arrival=t))
+        svc = net.SchedulerService(pod, net.IsoperimetricPolicy(), backfill=True, device=dev)
+        for req in jobs:
+            svc.submit(req)
+        return svc.run()
+
+    (svc, t_card), (svc_cpu, t_cpu) = wall_s(lambda: queue(card)), wall_s(lambda: queue("cpu"))
+    check_logs("the HyperX queue", svc.log, svc_cpu.log)
+    res = svc.result()
+    out["queue"] = {"pod": list(HX_PODS[0]), "jobs": len(res.jobs), "makespan": res.makespan,
+                    "mean_bisection_efficiency": res.mean_bisection_efficiency, "card_s": t_card, "cpu_s": t_cpu}
+    print(f"phase 10d: a {HX_QUEUE['jobs']}-job queue on H{HX_PODS[0]}: makespan {res.makespan!r}, mean "
+          f"bisection efficiency {res.mean_bisection_efficiency!r}, the same log on both; card {t_card:.3f} s, "
+          f"CPU {t_cpu:.3f} s", flush=True)
+
+    arch, chips, shape = HX_PLAN
+    plans = {dev: wall_s(lambda: planner.plan_model(arch, chips, pod=net.HyperXFabric(HX_PODS[0], link_bw=50e9),
+                                                    shape=shape, simulate_top_k=1, device=dev))
+             for dev in (card, "cpu")}
+    (plan, t_card), (plan_cpu, t_cpu) = plans[card], plans["cpu"]
+    if plan_rows(plan) != plan_rows(plan_cpu):
+        raise RuntimeError("phase 10d: the HyperX plan's rows differ on the card")
+    print(planner.format_table(plan), flush=True)
+    out["plan"] = {"arch": arch, "chips": chips, "shape": shape, "geometry": list(plan.geometry),
+                   "axis_sizes": list(plan.best.axis_sizes), "rows": len(plan.table),
+                   "step_s": plan.step_time, "card_s": t_card, "cpu_s": t_cpu}
+    print(f"phase 10d: plan_model {arch} at {chips} cells of H{HX_PODS[0]}: {plan.geometry} "
+          f"{plan.best.axis_sizes}, {len(plan.table)} rows, bit-equal on both; card {t_card:.3f} s, "
+          f"CPU {t_cpu:.3f} s", flush=True)
+    return out
+
+
+def phase10_engines(smi: str, card: str = "cuda", scenario_runs=None) -> dict:
+    """Phase 10: the rest of the network engines, each sub-phase on the card
+    and through the CPU path, with its wall time, the device's idle share
+    over its card work and the dispatch counts."""
+    from repro_torch.obs import DISPATCHES
+
+    from repro_torch import network as net
+
+    DISPATCHES.clear()
+    dims = node_dims(MIRA_SCHEDULER_PARTITIONS[8])
+    pairing = net.bisection_pairing(dims)
+    hx = net.HyperXFabric(HX_ROUTE, link_bw=1.0)
+    a2a = net.all_to_all(HX_ROUTE)
+    phases = [  # (sub-phase, its run, one card call of it timed under torch.profiler)
+        ("10a", lambda: phase10_routing(card), lambda: net.compare_routing(dims, pairing, device=card)),
+        ("10b", lambda: phase10_timeline(card),
+         lambda: net.simulate_flows(net.dor_paths(dims, *pairing), record_utilization=True, device=card)),
+        ("10c", lambda: phase10_telemetry(card, scenario_runs), lambda: spill_report(card)),
+        ("10d", lambda: phase10_hyperx(card), lambda: net.route_hyperx(hx, *a2a, mode="dal", device=card)),
+    ]
+    out = {}
+    for key, run, probe in phases:
+        t0 = time.perf_counter()
+        out[key] = run()
+        out[key]["wall_s"] = time.perf_counter() - t0
+        _, out[key]["idle"] = profile_idle_share(probe)
+        print(f"phase {key}: wall {out[key]['wall_s']:.1f} s; its probe under torch.profiler: wall "
+              f"{out[key]['idle']['wall_ms']:.1f} ms, device busy {out[key]['idle']['device_busy_ms']:.1f} ms, "
+              f"idle share {out[key]['idle']['device_idle_share']:.4f}", flush=True)
+    out["dispatches"] = {f"{name}/{dev}": n for (name, dev), n in sorted(DISPATCHES.items())}
+    missing = [name for name in ("adaptive_links", "drain", "attribute_contention", "hyperx_flows",
+                                 "hamming_cut_of_set", "hamming_cut_scores") if not DISPATCHES[(name, card)]]
+    if missing:
+        raise RuntimeError(f"phase 10: no dispatch on the card of {missing}")
+    print(f"phase 10: dispatches {out['dispatches']} on {smi}", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2084,6 +2411,7 @@ def main() -> int:
     # -- phase 7: the allocation engines -------------------------------------------
     t_phase = time.perf_counter()
     allocation = phase7_allocation(smi)
+    scenario_runs = allocation.pop("services")
     print(f"phase 7: wall {time.perf_counter() - t_phase:.1f} s", flush=True)
     print(json.dumps({"allocation": allocation, "card": smi}))
 
@@ -2098,6 +2426,12 @@ def main() -> int:
     distributed = phase9_distributed(torch, smi)
     print(f"phase 9: wall {time.perf_counter() - t_phase:.1f} s", flush=True)
     print(json.dumps({"distributed": distributed, "card": smi}))
+
+    # -- phase 10: the rest of the network engines --------------------------------
+    t_phase = time.perf_counter()
+    engines = phase10_engines(smi, scenario_runs=scenario_runs)
+    print(f"phase 10: wall {time.perf_counter() - t_phase:.1f} s", flush=True)
+    print(json.dumps({"engines": engines, "card": smi}))
 
     sources = {
         "flash_fwd": ("src/repro_torch/kernels/attention/csrc/flash_fwd_sm90.cu",

@@ -31,9 +31,15 @@ ranked by ``(step_time, geometry rank, axis sizes)`` are bit-equal to the
 JAX planner's when the profile holds the same constants, on the card and
 on the CPU alike.
 
+A :class:`~repro_torch.network.fabric.HyperXFabric` pod plans over its
+aligned sub-boxes (each a Hamming graph, ranked by the Lindsey-exact
+bisection table), prices ring schedules on the wrapped-torus equivalent
+of each box and the pairing term as one contention-free exchange over a
+trunked clique link.
+
 Differences from the JAX planner: ``pod`` is a required keyword (there is
 no default pod); ``device`` replaces ``backend``; the rule validator
-always runs; HyperX pods raise ``NotImplementedError``.
+always runs.
 
 >>> from repro_torch.network.fabric import TorusFabric
 >>> plan = plan_model("mixtral-8x7b", 8, pod=TorusFabric.tpu((4, 4), link_bw=2e9),
@@ -63,6 +69,7 @@ from repro_torch.network.collectives import (
     assign_axes,
 )
 from repro_torch.network.fabric import (
+    HyperXFabric,
     TorusFabric,
     ranked_slice_geometries,
     slice_fabric,
@@ -70,7 +77,7 @@ from repro_torch.network.fabric import (
 from repro_torch.network.geometry import Geometry, canonical, volume
 from repro_torch.network.isoperimetry import ranked_geometries, scaled_node_dims
 from repro_torch.network.mapping import RankMapping, map_ranks
-from repro_torch.network.netsim import simulate_traffic
+from repro_torch.network.netsim import simulate_fabric_traffic, simulate_traffic
 from repro_torch.network.routing import predict_pairing_time
 from repro_torch.obs import TRACER as _TRACER
 
@@ -343,7 +350,7 @@ class PlanCandidate:
     geometry_rank: int  # index in the bisection-ranked geometry list
     bisection_links: int
     bisection_efficiency: float  # this geometry's bisection / best rankable
-    fabric: TorusFabric
+    fabric: Union[TorusFabric, HyperXFabric]
     rule: ShardingRuleSet
     mapping: Optional[RankMapping]
     assignment: AxisAssignment
@@ -411,7 +418,7 @@ Priced = Tuple[Optional[RankMapping], AxisAssignment, Tuple, float, float, float
 def price_candidate(
     cfg: ArchConfig,
     shape: ShapeConfig,
-    fabric: TorusFabric,
+    fabric: Union[TorusFabric, HyperXFabric],
     node_dims: Geometry,
     n_compute: int,
     rule: ShardingRuleSet,
@@ -423,7 +430,9 @@ def price_candidate(
       then :data:`~repro_torch.network.collectives.COLLECTIVE_TIME` per
       traffic entry, summed in entry order;
     * pairing time: the node-level stress volume times
-      ``predict_pairing_time(node_dims).time_per_volume``;
+      ``predict_pairing_time(node_dims).time_per_volume`` (on a HyperX box,
+      one contention-free stage over the longest dimension's trunked
+      link);
     * compute and memory time: :func:`cell_cost` over the H100 profile.
 
     With tracing on (:data:`repro_torch.obs.TRACER`) each pricing records a
@@ -440,16 +449,31 @@ def price_candidate(
         return priced
 
 
+def _ring_equivalent(fabric: HyperXFabric) -> TorusFabric:
+    """Wrapped-torus stand-in for pricing ring schedules on a HyperX box.
+
+    A ring pass along one dimension of a clique uses one direct link per
+    hop stage, like a fully-wrapped torus dimension, so ring-collective
+    times on ``H(S)`` equal those on the wrapped torus of the same dims
+    with per-link bandwidth ``K_k * link_bw`` (exact for uniform trunking;
+    the minimum multiplicity keeps it conservative otherwise), and single
+    links on length-2 dimensions: the trunking is already in the rate."""
+    bw = fabric.link_bw * min(fabric.link_multiplicity)
+    return TorusFabric(fabric.dims, (True,) * len(fabric.dims), bw, double_link_on_2=False)
+
+
 def _price_candidate_impl(
     cfg: ArchConfig,
     shape: ShapeConfig,
-    fabric: TorusFabric,
+    fabric: Union[TorusFabric, HyperXFabric],
     node_dims: Geometry,
     n_compute: int,
     rule: ShardingRuleSet,
     device: DeviceLike,
 ) -> Optional[Priced]:
     chips = fabric.num_chips
+    hyperx = isinstance(fabric, HyperXFabric)
+    ring_fab = _ring_equivalent(fabric) if hyperx else fabric
     entries = rule_traffic(cfg, shape, rule.axis_sizes)
     pair_chip = pairing_stress_volume(entries, rule.axis_sizes)
     traffic = rule_rank_traffic(rule.axis_sizes, entries, pair_chip)
@@ -457,19 +481,19 @@ def _price_candidate_impl(
     try:
         if traffic is not None:
             mapping = map_ranks(
-                fabric.dims,
-                fabric.dims,
+                ring_fab.dims,
+                ring_fab.dims,
                 logical_dims=tuple(rule.axis_sizes),
                 traffic=traffic,
-                double_link_on_2=fabric.double_link_on_2,
+                double_link_on_2=ring_fab.double_link_on_2,
                 refine=False,  # the catalogue alone: refinement is a seeded local search
-                wrap=fabric.wrap,
+                wrap=ring_fab.wrap,
                 device=device,
             )
-        assignment = assign_axes(fabric, rule.mesh_shape, order_hint=rule.order_hint, mapping=mapping)
+        assignment = assign_axes(ring_fab, rule.mesh_shape, order_hint=rule.order_hint, mapping=mapping)
     except ValueError:
         return None  # rule does not embed in this geometry
-    cost_model = CollectiveCostModel(fabric, assignment)
+    cost_model = CollectiveCostModel(ring_fab, assignment)
     ring_time = 0.0
     for axis, collective, vol in entries:
         ring_time += cost_model.time(collective, axis, vol)
@@ -477,7 +501,16 @@ def _price_candidate_impl(
     # (identity on chip-level fabrics where volume(node_dims) == chips).
     pair_node = pair_chip * chips / volume(node_dims)
     pairing_time = 0.0
-    if pair_node > 0.0:
+    if pair_node > 0.0 and hyperx:
+        # Halving-doubling partners differ in one coordinate of the split
+        # dimension, so every pair has its own direct clique link: the
+        # exchange drains in one contention-free stage over a K_k-trunked
+        # link.
+        sides = fabric.dims
+        if max(sides) > 1:
+            k = max(range(len(sides)), key=lambda i: sides[i])
+            pairing_time = pair_node / (fabric.link_bw * fabric.link_multiplicity[k])
+    elif pair_node > 0.0:
         pred = predict_pairing_time(
             node_dims, 1.0, fabric.link_bw, double_link_on_2=fabric.double_link_on_2
         )
@@ -565,21 +598,16 @@ def default_chip_budget(cfg: ArchConfig) -> int:
     return max(4, 2 ** math.ceil(math.log2(max(need, 1.0))))
 
 
-def _require_torus_pod(pod) -> None:
-    if getattr(pod, "link_multiplicity", None) is not None:
-        raise NotImplementedError(
-            f"{type(pod).__name__} pods are not ported: the planner's HyperX branch "
-            "waits for the HyperX fabric (ROADMAP Queue 1 item 4)"
-        )
-    if not isinstance(pod, TorusFabric):
-        raise TypeError(f"pod must be a repro_torch TorusFabric, got {type(pod).__name__}")
+def _require_pod(pod) -> None:
+    if not isinstance(pod, (TorusFabric, HyperXFabric)):
+        raise TypeError(f"pod must be a repro_torch TorusFabric or HyperXFabric, got {type(pod).__name__}")
 
 
 def plan_model(
     arch: Union[str, ArchConfig],
     chips: Optional[int] = None,
     *,
-    pod: TorusFabric,
+    pod: Union[TorusFabric, HyperXFabric],
     shape: Union[str, ShapeConfig] = "decode_32k",
     wrap_mode: str = "slice",
     unit_node_dims: Optional[Sequence[int]] = None,
@@ -600,12 +628,29 @@ def plan_model(
     ``simulate_top_k`` drains the top-k rows' mapped traffic through the
     flow simulator on ``device`` and records the measured contention
     multiplier on ``simulated_slowdown`` (1.0 otherwise).
+
+    On a :class:`HyperXFabric` pod the slice/torus distinction collapses
+    (an aligned sub-box of a clique dimension is itself a clique), so both
+    ``wrap_mode`` values rank the same bisection table
+    (:func:`ranked_geometries` on the fabric); ``unit_node_dims`` is
+    rejected there.
     """
-    _require_torus_pod(pod)
+    _require_pod(pod)
     cfg = arch if isinstance(arch, ArchConfig) else get_arch(arch)
     shape_cfg = shape if isinstance(shape, ShapeConfig) else SHAPES[shape]
     budget = chips if chips is not None else min(default_chip_budget(cfg), pod.num_chips)
-    if wrap_mode == "slice":
+    if isinstance(pod, HyperXFabric):
+        if wrap_mode not in ("slice", "torus"):
+            raise ValueError(f"wrap_mode must be 'slice' or 'torus', got {wrap_mode!r}")
+        if unit_node_dims is not None:
+            raise ValueError(
+                "unit_node_dims is the BG/Q torus node-scaling convention; "
+                "HyperX pods plan over allocation-unit boxes directly"
+            )
+        ranked = ranked_geometries(pod, budget, device=device)
+        fabrics = [(g, bis, pod.sub_fabric(g)) for g, bis in ranked]
+        nodes = [fab.dims for _, _, fab in fabrics]
+    elif wrap_mode == "slice":
         ranked = ranked_slice_geometries(pod, budget, device=device)
         fabrics = [(g, bis, slice_fabric(pod, g)) for g, bis in ranked]
         nodes = [fab.dims for _, _, fab in fabrics]
@@ -679,6 +724,9 @@ def _simulate(cand: PlanCandidate, device: DeviceLike) -> float:
     src, dst, vol = cand.mapping.machine_traffic()
     if len(vol) == 0 or float(np.sum(vol)) <= 0.0:
         return 1.0
+    if isinstance(cand.fabric, HyperXFabric):
+        sim = simulate_fabric_traffic(cand.fabric, (src, dst, vol), link_bw=cand.fabric.link_bw, device=device)
+        return max(1.0, float(sim.slowdown))
     sim = simulate_traffic(
         cand.fabric.dims, (src, dst, vol),
         link_bw=cand.fabric.link_bw,
@@ -714,7 +762,7 @@ def format_table(plan: SlicePlan, top: int = 8) -> str:
 def plan_fleet(
     archs: Optional[Sequence[Union[str, ArchConfig]]] = None,
     *,
-    pod: TorusFabric,
+    pod: Union[TorusFabric, HyperXFabric],
     **kwargs,
 ) -> List[SlicePlan]:
     """One :class:`SlicePlan` per config on ``pod`` (default: every

@@ -139,14 +139,36 @@ def apply_moe(p: Params, x: torch.Tensor, cfg: ArchConfig) -> Tuple[torch.Tensor
     mean_prob = probs.mean(dim=(0, 1))
     aux_loss = E * torch.sum(frac * mean_prob)
 
-    # dispatch, per batch row: (token, slot) pairs stably sorted by expert
+    if hasattr(x, "placements"):  # DTensors (the dry-run)
+        eb, slot, tok_s, wk, keep = _on_batch_shards(
+            lambda *t: _dispatch(*t, E, C), x, (x, top_w, top_ids), (0, 0, 0), (1, 0, 0, 0, 0)
+        )
+        eo = _expert_ffn(p, eb, cfg)
+        y = _on_batch_shards(lambda *t: _combine(*t, E, C, S), x, (eo, slot, tok_s, wk), (1, 0, 0, 0), (0,))[0]
+    else:
+        eb, slot, tok_s, wk, keep = _dispatch(x, top_w, top_ids, E, C)
+        y = _combine(_expert_ffn(p, eb, cfg), slot, tok_s, wk, E, C, S)
+    drop_rate = 1.0 - keep.float().mean(dim=-1).mean()
+    return y, {"moe_aux_loss": aux_loss, "moe_drop_rate": drop_rate}
+
+
+def _dispatch(x: torch.Tensor, top_w: torch.Tensor, top_ids: torch.Tensor, E: int, C: int):
+    """Per batch row, the (token, slot) pairs stably sorted by expert, each
+    expert's first C kept: the (E, B * C, d) expert buckets, and each
+    sorted pair's slot (the overflow slot E * C when dropped), token,
+    combine weight (zero when dropped) and keep flag, all (B, S * k)."""
+    B, S, d = x.shape
+    k = top_ids.shape[-1]
+    dev = x.device
     ids = top_ids.reshape(B, S * k)
     ids_s, order = torch.sort(ids, dim=-1, stable=True)
     tok_s = torch.div(order, k, rounding_mode="floor")  # jnp.repeat(arange(S), k)[order]
     w_s = torch.gather(top_w.reshape(B, S * k), 1, order)
-    # rank of each entry within its expert
-    starts = torch.searchsorted(ids_s, torch.arange(E, device=dev).expand(B, E).contiguous(),
-                                side="left")  # (B, E)
+    # rank of each entry within its expert: each expert's first index in
+    # the sorted ids is the exclusive cumulative sum of the per-expert
+    # counts (``searchsorted(side="left")``, integer-exact)
+    counts = torch.zeros(B, E, dtype=ids.dtype, device=dev).scatter_add_(1, ids, torch.ones_like(ids))
+    starts = torch.cumsum(counts, dim=-1) - counts
     rank = torch.arange(S * k, device=dev) - torch.gather(starts, 1, ids_s)
     keep = rank < C
     slot = torch.where(keep, ids_s * C + rank, E * C)  # dropped -> overflow slot
@@ -157,12 +179,46 @@ def apply_moe(p: Params, x: torch.Tensor, cfg: ArchConfig) -> Tuple[torch.Tensor
     bucket = torch.zeros(B * rows, d, dtype=x.dtype, device=dev).index_add_(0, flat_slot, src)
     # (B, E, C, d) -> merge groups into the capacity dim: (E, B*C, d)
     eb = bucket.view(B, rows, d)[:, :-1].reshape(B, E, C, d).transpose(0, 1).reshape(E, B * C, d)
-    eo = _expert_ffn(p, eb, cfg)
-    ob = eo.reshape(E, B, C, d).transpose(0, 1).reshape(B, E * C, d)
+    return eb, slot, tok_s, w_s * keep, keep
 
-    # combine: each pair's expert output, weighted, added into its token
+
+def _combine(eo: torch.Tensor, slot: torch.Tensor, tok_s: torch.Tensor, wk: torch.Tensor,
+             E: int, C: int, S: int) -> torch.Tensor:
+    """Each pair's expert output, weighted, added into its token: (B, S, d)
+    from the (E, B * C, d) expert outputs and :func:`_dispatch`'s pairs."""
+    B = slot.shape[0]
+    d = eo.shape[-1]
+    dev = eo.device
+    rows = E * C + 1
+    ob = eo.reshape(E, B, C, d).transpose(0, 1).reshape(B, E * C, d)
     obf = torch.cat([ob, torch.zeros(B, 1, d, dtype=ob.dtype, device=dev)], dim=1)
-    vals = obf.reshape(B * rows, d)[flat_slot] * (w_s * keep).reshape(-1, 1).to(ob.dtype)
+    flat_slot = (slot + torch.arange(B, device=dev)[:, None] * rows).reshape(-1)
+    flat_tok = (tok_s + torch.arange(B, device=dev)[:, None] * S).reshape(-1)
+    vals = obf.reshape(B * rows, d)[flat_slot] * wk.reshape(-1, 1).to(ob.dtype)
     y = torch.zeros(B * S, d, dtype=ob.dtype, device=dev).index_add_(0, flat_tok, vals)
-    drop_rate = 1.0 - keep.float().mean(dim=-1).mean()
-    return y.view(B, S, d), {"moe_aux_loss": aux_loss, "moe_drop_rate": drop_rate}
+    return y.view(B, S, d)
+
+
+def _on_batch_shards(fn, x: torch.Tensor, args, in_dims, out_dims):
+    """``fn`` on DTensor ``args``, run on each rank's batch shards: the
+    dispatch and the combine are independent across batch rows.  Each
+    ``args[i]`` has its batch dimension ``in_dims[i]`` sharded over the mesh
+    dimensions that shard the layer input ``x``'s batch and is replicated
+    over the others; output ``j`` is laid out alike with its batch
+    dimension ``out_dims[j]`` (the buckets' (E, B * C, d) hold each batch
+    row's C slots contiguously, so a batch shard is a shard of their
+    dimension 1)."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = x.device_mesh
+    batch = [isinstance(pl, Shard) and pl.dim == 0 for pl in x.placements]
+
+    def layout(dim):
+        return [Shard(dim) if b else Replicate() for b in batch]
+
+    args = tuple(a.redistribute(mesh, layout(dim)) for a, dim in zip(args, in_dims))
+    run = local_map(fn, out_placements=tuple(layout(dim) for dim in out_dims),
+                    in_placements=tuple(layout(dim) for dim in in_dims), device_mesh=mesh)
+    out = run(*args)
+    return out if isinstance(out, tuple) else (out,)

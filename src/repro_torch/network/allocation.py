@@ -18,8 +18,14 @@ geometry they pick for a size and, for the scored one, where it lands:
 int64 load accumulators as tensors on ``device`` (the state a deployment
 holds); the policies and the event loop stay on the host.  Every pass a
 run reaches — the cut tables behind the policies' rankings, the placement
-search, the rank mapping and the flow drains — runs on ``device``.  The
-HyperX branches of the JAX package are not ported.
+search, the rank mapping and the flow drains — runs on ``device``.
+
+A machine may be a :class:`~repro_torch.network.fabric.HyperXFabric`:
+occupancy uses the same grid (a clique dimension is invariant under
+coordinate relabeling, so a wrapped translate of a box is just another
+aligned box), bisections are the boxes' Hamming bisections, and scored
+placement degrades to first fit, since disjoint aligned boxes share no
+links there.
 """
 
 from __future__ import annotations
@@ -33,7 +39,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.network.fabric import TorusFabric
+from repro_torch.network.fabric import HyperXFabric, TorusFabric
 from repro_torch.network.geometry import Geometry, bisection_links, canonical, sub_cuboids
 from repro_torch.network.isoperimetry import fitting_geometries, ranked_geometries, scaled_node_dims
 from repro_torch.network.mapping import RankMapping, map_ranks
@@ -124,15 +130,16 @@ class MachineState:
     :func:`repro_torch.network.placement.int_base_loads`).  Commits add
     and releases subtract in int64, so the background after any stream is
     bit-identical to a fresh recompute.  ``dims`` may be a
-    :class:`~repro_torch.network.fabric.TorusFabric`.
+    :class:`~repro_torch.network.fabric.TorusFabric` or a
+    :class:`~repro_torch.network.fabric.HyperXFabric`; on the latter no
+    background is kept: every minimal path of an aligned box stays in the
+    box.
     """
 
     def __init__(self, dims: Sequence[int], device: DeviceLike = "cuda"):
-        if hasattr(dims, "link_multiplicity"):
-            raise NotImplementedError("HyperX machines are not ported (ROADMAP Queue 1, the HyperX slice)")
         self.device = resolve_device(device)
-        if isinstance(dims, TorusFabric):
-            self.fabric: Optional[TorusFabric] = dims
+        if isinstance(dims, (TorusFabric, HyperXFabric)):
+            self.fabric: Optional[object] = dims
             self.dims = dims.dims
         else:
             self.fabric = None
@@ -151,6 +158,19 @@ class MachineState:
     def fabric_or_dims(self):
         """The fabric this machine was built from, or its plain dims."""
         return self.fabric if self.fabric is not None else self.dims
+
+    @property
+    def is_hyperx(self) -> bool:
+        """Whether the machine is a HyperX fabric."""
+        return isinstance(self.fabric, HyperXFabric)
+
+    def _geometry_bisection(self, geometry: Geometry) -> int:
+        """Internal bisection of a canonical geometry under the machine's
+        fabric convention (Hamming sub-box on HyperX, wrapped torus
+        else)."""
+        if self.is_hyperx:
+            return self.fabric.sub_fabric(geometry).bisection_links()
+        return bisection_links(geometry)
 
     def cells(self, oriented: Sequence[int], offset: Coord) -> Tuple[np.ndarray, ...]:
         return placement_cells(self.dims, oriented, offset)
@@ -171,6 +191,13 @@ class MachineState:
     def traffic_loads_t(self, exclude: Optional[int] = None) -> torch.Tensor:
         """:meth:`traffic_loads` as a tensor on the machine's device (the
         cached one when nothing is excluded: read it, never write it)."""
+        if self.is_hyperx:
+            raise TypeError(
+                "traffic_loads is the torus-routed background field; on a "
+                "HyperX fabric disjoint aligned boxes share no links (every "
+                "minimal path stays inside its own box), so there is no "
+                "cross-placement background to maintain"
+            )
         if exclude is not None:
             p = self.placements[exclude]
             return self._recombine(int(np.prod(p.oriented)), self._field(p.oriented, p.offset))
@@ -184,7 +211,9 @@ class MachineState:
             acc = self._int_loads[n]
             if n == exclude_size:
                 acc = acc - exclude_field
-            total += acc.to(torch.float64) / (2.0 * n)
+            # a device tensor: CUDA divides by a host scalar as a product
+            # with its reciprocal, which rounds apart from the CPU's division
+            total += acc.to(torch.float64) / torch.tensor(2.0 * n, dtype=torch.float64, device=self.device)
         return total
 
     def traffic_loads(self, exclude: Optional[int] = None) -> np.ndarray:
@@ -210,12 +239,12 @@ class MachineState:
             geometry=canonical(geometry),
             oriented=oriented,
             offset=offset,
-            bisection_links=bisection_links(canonical(geometry)) if bisection is None else bisection,
+            bisection_links=self._geometry_bisection(canonical(geometry)) if bisection is None else bisection,
             predicted_contention=predicted_contention,
         )
         self.placements[job_id] = p
         n = int(np.prod(oriented))
-        if n > 1:  # a single cell routes no traffic; any larger job does
+        if n > 1 and not self.is_hyperx:  # a single cell routes no traffic; any larger job does
             delta = self._field(oriented, offset)
             acc = self._int_loads.get(n)
             if acc is None:
@@ -237,7 +266,11 @@ class MachineState:
     def allocate_scored(self, job_id: int, geometry: Sequence[int]) -> Optional[Placement]:
         """Contention/contact-scored allocation of one geometry
         (:func:`repro_torch.network.placement.best_placement` on the
-        machine's device)."""
+        machine's device).  On a HyperX machine scoring is vacuous — every
+        free translate predicts zero shared-link contention — and this is
+        first fit with a 0.0 score."""
+        if self.is_hyperx:
+            return self.allocate(job_id, geometry)
         cand = best_placement(self.grid, geometry, self.traffic_loads_t(), device=self.device)
         if cand is None:
             return None
@@ -272,7 +305,7 @@ class MachineState:
         p = self.placements.pop(job_id)
         self.grid[self._cells(p.oriented, p.offset)] = False
         n = int(np.prod(p.oriented))
-        if n > 1:
+        if n > 1 and not self.is_hyperx:
             self._int_loads[n] -= self._field(p.oriented, p.offset)
             self._live[n] -= 1
             if not self._live[n]:
@@ -285,14 +318,16 @@ class MachineState:
 # Policies.
 # ---------------------------------------------------------------------------
 @lru_cache(maxsize=1024)
-def _ranked(dims: Geometry, units: int, device: str) -> Tuple[Tuple[Geometry, int], ...]:
-    """:func:`ranked_geometries` memoised per (machine, size, device): the
-    policies ask for the same ranking at every scheduling attempt."""
-    return tuple(ranked_geometries(dims, units, device=device))
+def _ranked(machine, units: int, device: str) -> Tuple[Tuple[Geometry, int], ...]:
+    """:func:`ranked_geometries` memoised per (machine dims or HyperX
+    fabric, size, device): the policies ask for the same ranking at every
+    scheduling attempt."""
+    return tuple(ranked_geometries(machine, units, device=device))
 
 
 def _ranked_for(machine: MachineState, units: int) -> List[Tuple[Geometry, int]]:
-    return list(_ranked(canonical(machine.dims), int(units), str(machine.device)))
+    key = machine.fabric if machine.is_hyperx else canonical(machine.dims)
+    return list(_ranked(key, int(units), str(machine.device)))
 
 
 def _honor_requested_geometry(prefs: List[Geometry], request: JobRequest) -> List[Geometry]:
@@ -542,7 +577,11 @@ def simulate_queue(
     sharing: ``simulated_comm_time`` beside the static lower bound
     ``comm_lower_bound``).  ``mapping_pattern`` maps each job's ranks
     (:func:`repro_torch.network.mapping.map_ranks`) and measures the
-    named pattern's mapped loads instead.  Every pass — the placement
+    named pattern's mapped loads instead.  ``machine_dims`` may be a
+    :class:`~repro_torch.network.fabric.TorusFabric` or a
+    :class:`~repro_torch.network.fabric.HyperXFabric`; the contention
+    models are torus replays, so they raise ``ValueError`` on a HyperX
+    machine, where disjoint boxes share no links.  Every pass — the placement
     search, the cut tables, the mapping and the drains — runs on
     ``device``; the measured numbers are computed exactly where the JAX
     package sums floats (in the integer domain for the all-to-all fields),
@@ -563,8 +602,15 @@ def simulate_queue(
     from repro_torch.network.scheduler import SchedulerService
 
     dev = resolve_device(device)
-    fabric = machine_dims if isinstance(machine_dims, TorusFabric) else None
+    fabric = machine_dims if isinstance(machine_dims, (TorusFabric, HyperXFabric)) else None
     dims = fabric.dims if fabric is not None else tuple(int(d) for d in machine_dims)
+    if isinstance(fabric, HyperXFabric) and (measure or mapping_pattern is not None):
+        raise ValueError(
+            "contention measurement replays torus routing; on a HyperX "
+            "machine disjoint boxes share no links, so there is nothing to "
+            "measure — run without contention=/measure_contention/"
+            "mapping_pattern"
+        )
 
     # Live per-job mapped loads (mapping_pattern only), their running sum,
     # and the live jobs' messages (contention="simulated").

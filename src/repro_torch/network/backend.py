@@ -6,21 +6,29 @@ scheduler and advisor can score thousands of candidates per call.  Here
 they are eager torch in float64 and int64, on the card unless the caller
 passes ``device="cpu"``, where the same code runs on the CPU:
 
-=======================  ====================================================
-:func:`route_loads`      the DOR difference-array link-load tensor
-                         (``index_add_`` + ``cumsum``)
-:func:`prepare_drain`    the link x flow incidence compacted to ELL on the
-                         host; the index lists and capacities move to the
-                         device once
-:func:`drain`            max-min progressive filling
-:func:`drain_batch`      many volume lanes of one plan, run together
-:func:`score_candidates` congestion and dilation of B candidate mappings,
-                         batched in chunks under a memory budget
-:func:`contention_field` the FFT cross-correlation over all load planes
-                         (:func:`snapped_contention`: against an integer
-                         load field, rounded to the exact integer)
-:func:`cut_scores`       the closed-form cuboid cut in int64
-=======================  ====================================================
+=========================  ==================================================
+:func:`route_loads`        the DOR difference-array link-load tensor
+                           (``index_add_`` + ``cumsum``)
+:func:`prepare_drain`      the link x flow incidence compacted to ELL on the
+                           host; the index lists and capacities move to the
+                           device once
+:func:`drain`              max-min progressive filling
+:func:`drain_timeline`     the same, recording each step's link utilization
+:func:`drain_batch`        many volume lanes of one plan, run together
+:func:`score_candidates`   congestion and dilation of B candidate mappings,
+                           batched in chunks under a memory budget
+:func:`contention_field`   the FFT cross-correlation over all load planes
+                           (:func:`snapped_contention`: against an integer
+                           load field, rounded to the exact integer)
+:func:`cut_scores`         the closed-form cuboid cut in int64
+                           (:func:`hamming_cut_scores`: an aligned box's
+                           cut in a Hamming graph)
+:func:`adaptive_links`     the minimal-adaptive torus router's decisions and
+                           links over a frozen DOR field (``cumsum``
+                           prefixes, gathers, ``argmin``)
+:func:`hyperx_flows`       HyperX minimal and DAL routing (``index_add_``
+                           fields, ``scatter_reduce`` bottlenecks)
+=========================  ==================================================
 
 Exactness.  Link loads are sums of integer volumes, halved at most once
 by a split tie, so every partial sum is exact in float64 whatever the
@@ -30,7 +38,7 @@ dyadic volumes (for others, to float64 summation order).  The drain's
 arithmetic is elementwise or an order-free ``min``/count, so a lane's
 completion times do not depend on the device nor on the other lanes.
 
-What stays NumPy: path building, tie expansion and the ELL compaction
+What stays NumPy: DOR path building, tie expansion and the ELL compaction
 (irregular ``np.unique``/argsort work), the divisor enumeration and the
 group-by of :func:`repro_torch.network.isoperimetry.cut_table`, and
 result packaging.  Eager torch compiles nothing per shape, so the JAX
@@ -41,7 +49,7 @@ counterpart; ``repro_torch.obs.DISPATCHES`` counts the calls.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -53,10 +61,15 @@ from repro_torch.obs import count_dispatch
 __all__ = [
     "DrainPlan",
     "SCORE_BUDGET_BYTES",
+    "adaptive_links",
     "contention_field",
     "cut_scores",
     "drain",
     "drain_batch",
+    "drain_timeline",
+    "hamming_cut_scores",
+    "hyperx_flows",
+    "hyperx_loads",
     "prepare_drain",
     "route_loads",
     "score_candidates",
@@ -232,7 +245,9 @@ class DrainPlan:
     ``lf[l]`` lists the flows crossing used link ``l`` (padded with the
     dummy flow ``n_flows``); ``fl[f]`` the used links of flow ``f`` (padded
     with the dummy link ``n_links_used``).  ``lf``, ``fl`` and ``cap`` live
-    on ``device``.  ``vol`` is the scenario's own subflow volumes;
+    on ``device``; ``links`` maps each used link back to its id in the
+    full layout of ``n_slots`` links (``(D, 2, *dims)`` flattened, or a
+    fabric's dense slots).  ``vol`` is the scenario's own subflow volumes;
     :func:`drain` and :func:`drain_batch` take others with the same flow
     order, so one plan serves every translate of a translation-invariant
     scenario family.
@@ -248,6 +263,8 @@ class DrainPlan:
     vol: np.ndarray  # (F,) float64
     max_iters: int
     device: torch.device
+    links: np.ndarray  # (Lu,) int64: used link l's id in the full layout
+    n_slots: int  # size of the full link layout
 
 
 def prepare_drain(
@@ -305,6 +322,8 @@ def prepare_drain(
         vol=np.asarray(paths.vol, dtype=np.float64),
         max_iters=Lu + 1,
         device=dev,
+        links=uniq,
+        n_slots=int(capfull.shape[0]),
     )
 
 
@@ -349,14 +368,20 @@ def _max_min_rates(plan: DrainPlan, growing: torch.Tensor) -> torch.Tensor:
 
 
 def _drain_lanes(
-    plan: DrainPlan, vols: torch.Tensor, active: torch.Tensor, max_steps: int
+    plan: DrainPlan, vols: torch.Tensor, active: torch.Tensor, max_steps: int,
+    timeline: Optional[list] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, bool]:
     """Drain B lanes together: (completion (B, F), steps (B,), whether a
     lane still had active flows after ``max_steps`` steps).  Each step
     gives every live lane's active flows their max-min rates, advances the
     lane's clock to its next completion (the first flow of least
     remaining/rate; ties go to the lowest flow index, as ``np.argmin``
-    and ``jnp.argmin`` take them) and retires the flows that drained."""
+    and ``jnp.argmin`` take them) and retires the flows that drained.
+
+    With a ``timeline`` list (one lane), each step appends, on the
+    device, its ``[start, end, max, mean, active flows]`` and the
+    utilization of every used link: the step's rates summed over the
+    link's flows, over its capacity; max and mean over links in use."""
     B, F = vols.shape
     dev = vols.device
     tolv = vols.clamp(min=1.0) * _EPS
@@ -375,6 +400,8 @@ def _drain_lanes(
         amin = ratio.argmin(dim=1, keepdim=True)
         dt = ratio.gather(1, amin)
         t2 = t.unsqueeze(1) + dt
+        if timeline is not None:
+            timeline.append(_utilization_sample(plan, rates[0], t2[0, 0] - dt[0, 0], t2[0, 0], active[0]))
         rem2 = torch.where(active, remaining - rates * dt, remaining).scatter_(1, amin, 0.0)
         finished = active & (rem2 <= tolv) & L
         t = torch.where(live, t2.squeeze(1), t)
@@ -385,14 +412,32 @@ def _drain_lanes(
     return fc, steps, bool(active.any())
 
 
-def _drain_checked(plan: DrainPlan, vols: np.ndarray, max_steps: int, name: str) -> Tuple[np.ndarray, np.ndarray]:
+def _utilization_sample(
+    plan: DrainPlan, rates: torch.Tensor, start: torch.Tensor, end: torch.Tensor, active: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One step's timeline entry on the device: ``[start, end, max, mean,
+    active flows]`` and the (Lu,) used-link utilization."""
+    rpad = torch.cat([rates, rates.new_zeros(1)])
+    used = rpad[plan.lf.view(-1)].view(plan.n_links_used, -1).sum(dim=1)
+    util = torch.where(plan.cap > 0.0, used / torch.where(plan.cap > 0.0, plan.cap, 1.0), 0.0)
+    busy = used > 0.0
+    n_busy = busy.sum()
+    peak = torch.where(busy, util, 0.0).max()
+    mean = torch.where(n_busy > 0, torch.where(busy, util, 0.0).sum() / n_busy.clamp(min=1), 0.0)
+    stats = torch.stack([start, end, peak, mean, active.sum().to(torch.float64)])
+    return stats, util
+
+
+def _drain_checked(
+    plan: DrainPlan, vols: np.ndarray, max_steps: int, name: str, timeline: Optional[list] = None
+) -> Tuple[np.ndarray, np.ndarray]:
     B = vols.shape[0]
     active0 = plan.has_links[None, :] & (vols > _EPS)
     if plan.n_links_used == 0 or not active0.any():
         return np.zeros((B, plan.n_flows)), np.zeros(B, dtype=np.int64)
     count_dispatch(name, plan.device.type)
     fc, steps, unfinished = _drain_lanes(
-        plan, _tensor(vols, plan.device), _tensor(active0, plan.device), int(max_steps)
+        plan, _tensor(vols, plan.device), _tensor(active0, plan.device), int(max_steps), timeline
     )
     if unfinished:
         raise RuntimeError(f"flow simulation exceeded {max_steps} steps")
@@ -410,6 +455,27 @@ def drain(plan: DrainPlan, vol: Optional[np.ndarray] = None, max_steps: int = 10
         raise ValueError(f"vol must have shape ({plan.n_flows},); got {v.shape}")
     fc, steps = _drain_checked(plan, v[None], max_steps, "drain")
     return fc[0], int(steps[0])
+
+
+def drain_timeline(
+    plan: DrainPlan, max_steps: int = 100_000
+) -> Tuple[np.ndarray, int, np.ndarray, np.ndarray]:
+    """:func:`drain` of the plan's own volumes, recording the utilization
+    timeline on the device as it goes: ``(flow_completion, steps, stats,
+    util)`` with ``stats`` (steps, 5) rows ``[start, end, max, mean,
+    active flows]`` and ``util`` (steps, n_slots) each step's utilization
+    of every link of the full layout (zero where unused), as the NumPy
+    engine's ``record_utilization=True`` records them (samples within
+    1e-9 relative: a link's rates are summed in another order)."""
+    samples: list = []
+    fc, steps = _drain_checked(plan, plan.vol[None], max_steps, "drain", samples)
+    if not samples:
+        return fc[0], int(steps[0]), np.zeros((0, 5)), np.zeros((0, plan.n_slots))
+    stats = torch.stack([st for st, _ in samples]).cpu().numpy()
+    used = torch.stack([u for _, u in samples]).cpu().numpy()
+    util = np.zeros((used.shape[0], plan.n_slots))
+    util[:, plan.links] = used
+    return fc[0], int(steps[0]), stats, util
 
 
 def drain_batch(plan: DrainPlan, vols: np.ndarray, max_steps: int = 100_000) -> Tuple[np.ndarray, np.ndarray]:
@@ -585,3 +651,267 @@ def cut_scores(
     s = _tensor(S, dev)
     av = torch.tensor([int(a) for a in dims], dtype=torch.int64, device=dev)
     return ((2 * int(t)) // s).masked_fill(s == av, 0).sum(dim=1).cpu().numpy()
+
+
+def hamming_cut_scores(
+    dims: Sequence[int], mult: Sequence[int], assignments: np.ndarray, t: int, device: DeviceLike = "cuda"
+) -> np.ndarray:
+    """For each aligned box ``S`` of volume ``t`` in the Hamming graph
+    ``H(dims)`` with link multiplicities ``mult``, the exact cut ``t *
+    sum_k K_k (S_k - c_k)`` in int64: a covered dimension contributes
+    nothing."""
+    dev = resolve_device(device)
+    S = np.asarray(assignments, dtype=np.int64)
+    if S.shape[0] == 0:
+        return np.zeros(0, dtype=np.int64)
+    count_dispatch("hamming_cut_scores", dev.type)
+    s = _tensor(S, dev)
+    av = torch.tensor([int(a) for a in dims], dtype=torch.int64, device=dev)
+    kv = torch.tensor([int(k) for k in mult], dtype=torch.int64, device=dev)
+    return (int(t) * kv * (av - s)).sum(dim=1).cpu().numpy()
+
+
+# ---------------------------------------------------------------------------
+# (5) Minimal-adaptive torus routing.
+# ---------------------------------------------------------------------------
+def _segment_links_t(
+    a: int, stride: int, plane_base: torch.Tensor, base_vflat: torch.Tensor, start: torch.Tensor,
+    hops: torch.Tensor, fwd: torch.Tensor, flow_idx: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The directed links of a batch of ring segments, flat ids and owning
+    flows, in the NumPy engine's order (segment by segment, hop by hop):
+    a forward segment from ring position ``s`` of ``h`` hops uses the '+'
+    links leaving ``s, .., s+h-1``, a backward one the '-' links leaving
+    ``s, .., s-h+1``."""
+    rep = torch.repeat_interleave(torch.arange(hops.shape[0], device=hops.device), hops)
+    first = torch.cumsum(hops, 0) - hops
+    j = torch.arange(rep.shape[0], device=hops.device) - first[rep]
+    sgn = torch.where(fwd, 1, -1)[rep]
+    pos = torch.remainder(start[rep] + sgn * j, a)
+    return plane_base[rep] + base_vflat[rep] + pos * stride, flow_idx[rep]
+
+
+def adaptive_links(
+    dims: Sequence[int],
+    messages: Tuple[np.ndarray, np.ndarray, np.ndarray],
+    flows: Tuple[np.ndarray, np.ndarray, np.ndarray],
+    split_ties: bool = True,
+    divert_margin: float = 0.75,
+    device: DeviceLike = "cuda",
+) -> Tuple[np.ndarray, np.ndarray]:
+    """The link incidence ``(link_ids, flow_ids)`` of the NumPy engine's
+    minimal-adaptive router (``repro.network.netsim.adaptive_paths``), on
+    ``device``.
+
+    ``messages`` is the ``(src, dst, vol)`` batch, ``flows`` its subflows'
+    ``(src, dst, fwd)`` after tie expansion.  Pass 1 is the messages' DOR
+    link-load field (:func:`route_loads`' pass; for integer or dyadic
+    volumes the subflows' field exactly).  Pass 2 prices every unrouted
+    dimension of every flow at once against that frozen field, as the
+    mean load along the candidate segment (per (dimension, direction)
+    ``cumsum`` prefixes, two gathers per segment), and routes a whole
+    dimension per round: DOR's lowest remaining dimension unless the
+    cheapest one costs less than ``divert_margin`` times it (``argmin``
+    ties to the lowest dimension).  With an exact field the decisions,
+    and so the ids, equal the NumPy engine's."""
+    dev = resolve_device(device)
+    dims = tuple(int(a) for a in dims)
+    D = len(dims)
+    n = volume(dims)
+    msrc, mdst, mvol = (_tensor(np.asarray(x), dev) for x in messages)
+    src, dst, fwd = (_tensor(np.asarray(x), dev) for x in flows)
+    F = src.shape[0]
+    if F == 0:
+        empty = np.zeros(0, dtype=np.int64)
+        return empty, empty.copy()
+    count_dispatch("adaptive_links", dev.type)
+    field = _route_loads(dims, msrc.long(), mdst.long(), mvol.double(), bool(split_ties))
+    prefix = torch.stack([torch.cumsum(field[k], dim=1 + k).reshape(2 * n) for k in range(D)])  # (D, 2N)
+    av = torch.tensor(dims, dtype=torch.int64, device=dev)
+    strides = torch.tensor(_strides(dims), dtype=torch.int64, device=dev)
+    hops = torch.minimum(torch.remainder(dst - src, av), torch.remainder(src - dst, av))
+    cur = src.clone()
+    remaining = hops > 0
+    rowsel = torch.arange(F, device=dev)
+    links, owners = [], []
+    for _ in range(D):
+        if not bool(remaining.any()):
+            break
+        act = remaining.any(dim=1)
+        cost = torch.full((F, D), torch.inf, dtype=torch.float64, device=dev)
+        base_all = _flat(dims, cur)
+        for k, a in enumerate(dims):
+            rows = torch.nonzero(remaining[:, k]).squeeze(1)
+            if rows.shape[0] == 0:
+                continue
+            h, s, fw = hops[rows, k], cur[rows, k], fwd[rows, k]
+            st = strides[k]
+            start = torch.where(fw, s, torch.remainder(s - h + 1, a))
+            b = base_all[rows] - s * st + (~fw).long() * n  # the '-' prefix follows the '+' one
+            end = start + h - 1
+            cs = prefix[k]
+            t_end = cs[b + torch.remainder(end, a) * st]
+            t_sm1 = torch.where(start > 0, cs[b + (start - 1).clamp(min=0) * st], 0.0)
+            ring = cs[b + (a - 1) * st]
+            seg = t_end - t_sm1 + torch.where(end >= a, ring, 0.0)
+            cost[rows, k] = seg / h
+        best = cost.argmin(dim=1)
+        default = remaining.to(torch.int8).argmax(dim=1)  # lowest remaining dimension
+        divert = cost[rowsel, best] < divert_margin * cost[rowsel, default]
+        choice = torch.where(divert, best, default)
+        for k, a in enumerate(dims):
+            g = torch.nonzero(act & (choice == k) & remaining[:, k]).squeeze(1)
+            if g.shape[0] == 0:
+                continue
+            s = cur[g, k]
+            base_vflat = base_all[g] - s * strides[k]
+            plane = torch.where(fwd[g, k], 2 * k, 2 * k + 1) * n
+            lk, fk = _segment_links_t(a, _strides(dims)[k], plane, base_vflat, s, hops[g, k], fwd[g, k], g)
+            links.append(lk)
+            owners.append(fk)
+            cur[g, k] = dst[g, k]
+            remaining[g, k] = False
+    if not links:
+        empty = np.zeros(0, dtype=np.int64)
+        return empty, empty.copy()
+    return torch.cat(links).cpu().numpy(), torch.cat(owners).cpu().numpy()
+
+
+# ---------------------------------------------------------------------------
+# (6) HyperX routing: minimal (dimension-ordered direct hops) and DAL.
+# ---------------------------------------------------------------------------
+def hyperx_blocks(dims: Tuple[int, ...]) -> Tuple[List[int], int]:
+    """Per-dimension slot-block starts of the HyperX link-id layout
+    (:meth:`repro_torch.network.fabric.HyperXFabric.links`) and the total
+    dense slot count ``N * sum(S_k)``."""
+    n = volume(dims)
+    bases: List[int] = []
+    b = 0
+    for a in dims:
+        bases.append(b)
+        b += n * a
+    return bases, b
+
+
+def hyperx_candidate_orders(D: int) -> List[Tuple[int, ...]]:
+    """DAL's candidate dimension orders: the D cyclic rotations of the
+    canonical order (rotation 0 is minimal routing)."""
+    base = tuple(range(D))
+    return [base[r:] + base[:r] for r in range(max(D, 1))]
+
+
+def _hyperx_order_links(
+    dims: Tuple[int, ...], src: torch.Tensor, dst: torch.Tensor, order: Sequence[int]
+) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """Per-hop ``(link_ids, message_idx)`` of every message under one
+    dimension order: each differing coordinate is one direct clique hop
+    from the current cell, in the NumPy engine's order."""
+    bases, _ = hyperx_blocks(dims)
+    cur = src.clone()
+    out: List[Tuple[torch.Tensor, torch.Tensor]] = []
+    for k in order:
+        a = dims[k]
+        if a > 1:
+            idx = torch.nonzero(cur[:, k] != dst[:, k]).squeeze(1)
+            if idx.shape[0]:
+                out.append((bases[k] + _flat(dims, cur[idx]) * a + dst[idx, k], idx))
+        cur[:, k] = dst[:, k]
+    return out
+
+
+def hyperx_flows(
+    dims: Sequence[int],
+    src: np.ndarray,
+    dst: np.ndarray,
+    vol: np.ndarray,
+    mode: str = "minimal",
+    rounds: int = 2,
+    balance_rtol: float = 1e-9,
+    device: DeviceLike = "cuda",
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Messages expanded into routed subflows on a HyperX fabric, on
+    ``device``: ``(msg, fvol, link_ids, flow_ids)`` tensors in the NumPy
+    engine's order (``repro.network.routing._hyperx_flows``).
+
+    ``"minimal"`` routes the canonical dimension order.  ``"dal"`` splits
+    each message over the candidate orders by the inverse of each order's
+    bottleneck load, ``rounds`` times from the minimal field: the field is
+    an ``index_add_`` over every order's hops, each (message, order)
+    bottleneck a ``scatter_reduce`` (``amax``), and a message whose
+    bottlenecks agree within ``balance_rtol`` keeps the minimal order.
+    Round 1's field is minimal routing's, exact for integer volumes, so
+    its decisions equal the NumPy engine's; fractional loads after it sum
+    in another order (within 1e-12 relative)."""
+    dev = resolve_device(device)
+    dims = tuple(int(a) for a in dims)
+    D = len(dims)
+    src = np.atleast_2d(np.asarray(src, dtype=np.int64))
+    dst = np.atleast_2d(np.asarray(dst, dtype=np.int64))
+    if src.shape != dst.shape or src.shape[1] != D:
+        raise ValueError(f"src/dst must have shape (M, {D}); got {src.shape}/{dst.shape}")
+    if mode not in ("minimal", "dal"):
+        raise ValueError(f"unknown HyperX routing mode {mode!r}; expected 'minimal' or 'dal'")
+    hi = np.asarray(dims, dtype=np.int64)
+    if ((src < 0) | (src >= hi) | (dst < 0) | (dst >= hi)).any():
+        raise ValueError(f"src/dst coordinates must lie in the fabric {dims}")
+    M = src.shape[0]
+    empty = torch.zeros(0, dtype=torch.int64, device=dev)
+    if M == 0:
+        return empty, torch.zeros(0, dtype=torch.float64, device=dev), empty.clone(), empty.clone()
+    count_dispatch("hyperx_flows", dev.type)
+    _, n_slots = hyperx_blocks(dims)
+    vol_t = _tensor(np.broadcast_to(np.asarray(vol, dtype=np.float64), (M,)), dev)
+    s_t, d_t = _tensor(src, dev), _tensor(dst, dev)
+    orders = hyperx_candidate_orders(D) if mode == "dal" else [tuple(range(D))]
+    per_order = [_hyperx_order_links(dims, s_t, d_t, o) for o in orders]
+    R = len(orders)
+    weights = torch.zeros(M, R, dtype=torch.float64, device=dev)
+    weights[:, 0] = 1.0
+    if mode == "dal":
+        tiny = 1e-300
+        for _ in range(max(rounds, 1)):
+            loads = torch.zeros(n_slots, dtype=torch.float64, device=dev)
+            for r, hops in enumerate(per_order):
+                w = weights[:, r] * vol_t
+                for ids, idx in hops:
+                    loads.index_add_(0, ids, w[idx])
+            cost = torch.zeros(R, M, dtype=torch.float64, device=dev)
+            for r, hops in enumerate(per_order):
+                for ids, idx in hops:
+                    cost[r].scatter_reduce_(0, idx, loads[ids], reduce="amax")
+            cost = cost.T
+            cmax = cost.max(dim=1).values
+            cmin = cost.min(dim=1).values
+            skewed = cmax - cmin > balance_rtol * cmax.clamp(min=tiny)
+            inv = 1.0 / cost.clamp(min=tiny)
+            frac = inv / inv.sum(dim=1, keepdim=True)
+            minimal = torch.zeros_like(weights)
+            minimal[:, 0] = 1.0
+            weights = torch.where(skewed[:, None], frac, minimal)
+    msg_l, fvol_l, link_l, flow_l = [], [], [], []
+    f_base = 0
+    for r, hops in enumerate(per_order):
+        live = torch.nonzero(weights[:, r] > 0.0).squeeze(1)
+        if live.shape[0] == 0:
+            continue
+        pos = torch.full((M,), -1, dtype=torch.int64, device=dev)
+        pos[live] = f_base + torch.arange(live.shape[0], device=dev)
+        msg_l.append(live)
+        fvol_l.append(weights[live, r] * vol_t[live])
+        for ids, idx in hops:
+            p = pos[idx]
+            sel = p >= 0
+            link_l.append(ids[sel])
+            flow_l.append(p[sel])
+        f_base += live.shape[0]
+    cat = lambda xs, e: torch.cat(xs) if xs else e  # noqa: E731
+    return (cat(msg_l, empty), cat(fvol_l, torch.zeros(0, dtype=torch.float64, device=dev)),
+            cat(link_l, empty.clone()), cat(flow_l, empty.clone()))
+
+
+def hyperx_loads(fvol: torch.Tensor, link_ids: torch.Tensor, flow_ids: torch.Tensor, n_slots: int) -> np.ndarray:
+    """The flat per-slot loads of :func:`hyperx_flows`' subflows (an
+    ``index_add_`` on their device; exact for integer volumes)."""
+    out = torch.zeros(n_slots, dtype=torch.float64, device=fvol.device)
+    out.index_add_(0, link_ids, fvol[flow_ids])
+    return out.cpu().numpy()

@@ -1,31 +1,35 @@
-"""Torus fabric model (the port's copy of the torus part of
-``repro.network.fabric``): one class for Blue Gene/Q- and TPU-style tori.
+"""Fabric models (the port's copy of ``repro.network.fabric``): one class
+for Blue Gene/Q- and TPU-style tori, and the HyperX fabric.
 
 * Blue Gene/Q: a partition always keeps its wrap-around links and a
   dimension of length 2 has two parallel links — ``TorusFabric.bgq``.
 * Single-link tori with per-dimension wrap flags — ``TorusFabric.tpu``.
+* HyperX (:class:`HyperXFabric`): a clique per dimension, the Hamming
+  graph, with optional trunked links per dimension.
 
 ``link_bw`` (per link per direction) is a required argument here: the
 port carries no default link rate.  Slice planning (the paper's technique
 at the job level: :func:`slice_fabric`, :func:`ranked_slice_geometries`,
 :func:`best_slice_geometry`, :func:`worst_slice_geometry`) takes a torus
-pod; the HyperX fabric is not ported.
+pod; a HyperX pod is planned through its own sub-boxes
+(:meth:`HyperXFabric.sub_fabric`).
 """
 
 from __future__ import annotations
 
 import abc
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Iterable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from repro_torch.device import DeviceLike
-from repro_torch.network import geometry
+from repro_torch.network import geometry, hamming
 from repro_torch.network.geometry import Geometry, canonical, volume
 
 __all__ = [
     "Fabric",
+    "HyperXFabric",
     "LinkTable",
     "Torus",
     "TorusFabric",
@@ -270,16 +274,144 @@ class Torus:
 
 
 # ---------------------------------------------------------------------------
+# HyperX: a clique per dimension (the Hamming graph H(S_1, ..., S_D)).
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class HyperXFabric(Fabric):
+    """A HyperX fabric: per-dimension diameter-1 all-to-all wiring.
+
+    Every cell connects directly to every other cell of each of its
+    dimension lines (the Hamming graph), with an optional per-dimension
+    link multiplicity ``K_k`` (trunked parallel links fold into
+    capacity).  Cut structure is the opposite of a torus: covering a
+    dimension removes its whole cut contribution, so elongated boxes have
+    the largest internal bisection (:mod:`repro_torch.network.hamming`).
+    ``link_bw`` (per single link per direction) is required.
+
+    >>> hx = HyperXFabric((16, 4), link_bw=1.0)
+    >>> hx.num_cells, hx.degree, hx.bisection_links()
+    (64, 18, 64)
+    >>> hx.sub_fabric((4, 4)).bisection_links()  # compact box: 4x worse
+    16
+    """
+
+    dims: Tuple[int, ...]
+    link_multiplicity: Optional[Tuple[int, ...]] = None  # K_k, default all 1
+    link_bw: float = field(kw_only=True)
+
+    def __post_init__(self):
+        object.__setattr__(self, "dims", tuple(int(a) for a in self.dims))
+        if any(a < 1 for a in self.dims):
+            raise ValueError(f"dims must be >= 1, got {self.dims}")
+        mult = self.link_multiplicity
+        mult = (1,) * len(self.dims) if mult is None else tuple(int(k) for k in mult)
+        if len(mult) != len(self.dims) or any(k < 1 for k in mult):
+            raise ValueError(
+                f"link_multiplicity {self.link_multiplicity} must be one "
+                f"positive entry per dim of {self.dims}"
+            )
+        object.__setattr__(self, "link_multiplicity", mult)
+
+    @property
+    def num_chips(self) -> int:
+        """Alias of :attr:`Fabric.num_cells` (fabric-API symmetry)."""
+        return self.num_cells
+
+    @property
+    def num_vertices(self) -> int:
+        """Alias of :attr:`Fabric.num_cells` for graph-flavoured callers."""
+        return self.num_cells
+
+    @property
+    def degree(self) -> int:
+        """Links per cell: ``sum_k K_k * (S_k - 1)``."""
+        return hamming.hamming_degree(self.dims, self.link_multiplicity)
+
+    def bisection_links(self) -> int:
+        """Exact internal bisection: the Lindsey lex half-set's cut
+        (:func:`repro_torch.network.hamming.hamming_bisection_links`)."""
+        return hamming.hamming_bisection_links(self.dims, self.link_multiplicity)
+
+    def bisection_bandwidth(self) -> float:
+        """Rate across the bisection, both directions of each link."""
+        return 2.0 * self.bisection_links() * self.link_bw
+
+    def contains_cuboid(self, cuboid: Sequence[int]) -> bool:
+        """Whether an aligned box with these sides fits (up to rotation):
+        any ``c_k <= S_k`` subset of a clique dimension spans a sub-box."""
+        return geometry.contains_cuboid(self.dims, cuboid)
+
+    def links(self) -> LinkTable:
+        """Directed clique links.  Dense id layout: dimension k occupies
+        the slot block ``N * sum_{i<k} S_i``, and the link from cell ``u``
+        to destination coordinate ``j`` in dim k has slot ``block_k +
+        flat(u) * S_k + j`` — the ``j == u_k`` self-slots stay unused.
+        Capacity is ``K_k * link_bw`` (trunking folds in)."""
+        dims = self.dims
+        n = self.num_cells
+        cells = np.arange(n, dtype=np.int64)
+        coords = np.stack(np.unravel_index(cells, dims), axis=1)
+        link, src, dst, cap = [], [], [], []
+        base = 0
+        for k, a in enumerate(dims):
+            if a > 1:
+                for j in range(a):
+                    take = coords[:, k] != j
+                    nb = coords[take].copy()
+                    nb[:, k] = j
+                    link.append(base + cells[take] * a + j)
+                    src.append(cells[take])
+                    dst.append(np.ravel_multi_index(tuple(nb.T), dims))
+                    cap.append(np.full(int(take.sum()), self.link_multiplicity[k] * self.link_bw))
+            base += n * a
+        empty = np.zeros(0, dtype=np.int64)
+        return LinkTable(
+            link=np.concatenate(link) if link else empty,
+            src=np.concatenate(src) if src else empty.copy(),
+            dst=np.concatenate(dst) if dst else empty.copy(),
+            capacity=np.concatenate(cap) if cap else np.zeros(0),
+            n_slots=n * sum(dims),
+        )
+
+    def sub_fabric(self, sides: Sequence[int]) -> "HyperXFabric":
+        """The fabric of an aligned sub-box: any ``c_k``-subset of a clique
+        dimension is itself a ``K_{c_k}`` clique, so a HyperX sub-box is
+        the Hamming graph ``H(c)`` — wrap semantics never enter (contrast
+        :func:`slice_fabric`).  Sides match machine dimensions
+        tightest-fit and inherit their multiplicities."""
+        g = canonical(sides)
+        g = g + (1,) * (len(self.dims) - len(g))
+        if len(g) > len(self.dims):
+            raise ValueError(f"sub-box {g} has more dims than fabric {self.dims}")
+        avail = sorted(range(len(self.dims)), key=lambda i: self.dims[i])
+        used = set()
+        out_dims, out_mult = [], []
+        for side in g:
+            pick = None
+            for i in avail:
+                if i not in used and self.dims[i] >= side:
+                    pick = i
+                    break
+            if pick is None:
+                raise ValueError(f"sub-box {g} does not fit in fabric {self.dims}")
+            used.add(pick)
+            out_dims.append(side)
+            out_mult.append(self.link_multiplicity[pick])
+        return HyperXFabric(tuple(out_dims), tuple(out_mult), link_bw=self.link_bw)
+
+
+# ---------------------------------------------------------------------------
 # Slice planning (the paper's technique at the job level).
 # ---------------------------------------------------------------------------
 def _require_ring_fabric(pod, where: str) -> None:
     """Slice planning computes wrap-aware torus bisections; anything
-    without per-dimension ring structure would get silently wrong
-    geometries, so fail loudly instead."""
+    without per-dimension ring structure (e.g. :class:`HyperXFabric`)
+    would get silently wrong geometries, so fail loudly instead."""
     if not isinstance(pod, TorusFabric):
         raise TypeError(
             f"{where} requires a TorusFabric (per-dimension ring structure with "
-            f"wrap semantics); got {type(pod).__name__}"
+            f"wrap semantics); got {type(pod).__name__} — for HyperX fabrics use "
+            f"HyperXFabric.sub_fabric / repro_torch.network.isoperimetry.ranked_geometries"
         )
 
 

@@ -17,9 +17,13 @@ of ``repro.network.isoperimetry``, paper Section 3).
   tori drained by :func:`repro_torch.network.netsim.simulate_traffic` on
   ``device``.
 
+On a :class:`~repro_torch.network.fabric.HyperXFabric` the same entry
+points rank aligned boxes by the Hamming cut (scored on ``device`` in
+int64, :func:`repro_torch.network.backend.hamming_cut_scores`), certify
+with the Lindsey bound (:mod:`repro_torch.network.hamming`), and the
+advisor's contention benchmark is the box's all-to-all.
+
 Every function that reaches a pass takes ``device`` (default ``"cuda"``).
-The HyperX branches (Hamming cuts, Lindsey bounds) are not ported: a
-HyperX fabric raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -31,7 +35,9 @@ from typing import List, Mapping, Optional, Sequence, Tuple
 import numpy as np
 
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.network.backend import cut_scores
+from repro_torch.network import hamming
+from repro_torch.network.backend import cut_scores, hamming_cut_scores
+from repro_torch.network.fabric import HyperXFabric
 from repro_torch.network.geometry import (
     Geometry,
     _divisors,
@@ -67,16 +73,21 @@ __all__ = [
 ]
 
 
-def _refuse_hyperx(torus_or_dims, what: str) -> None:
-    if hasattr(torus_or_dims, "link_multiplicity"):
-        raise NotImplementedError(
-            f"{what} on a HyperXFabric is not ported (ROADMAP Queue 1, the HyperX slice)"
-        )
-
-
 def _dims_of(torus_or_dims) -> Geometry:
-    """Canonical dims of a ``Torus``/``TorusFabric``-like object or a tuple."""
-    _refuse_hyperx(torus_or_dims, "this engine")
+    """Canonical dims of a ``Torus``/``TorusFabric``-like object or a tuple.
+    A :class:`HyperXFabric` has clique, not ring, lines: the public entry
+    points dispatch on it before reaching here."""
+    if isinstance(torus_or_dims, HyperXFabric):
+        raise TypeError(
+            "HyperXFabric reached a torus-only code path; use the fabric-"
+            "dispatching entry points (cut_table, optimal_cuboid, "
+            "bisection_table, advise_partition, ...)"
+        )
+    if hasattr(torus_or_dims, "link_multiplicity"):  # another package's HyperX fabric
+        raise TypeError(
+            f"{type(torus_or_dims).__module__}.{type(torus_or_dims).__name__} is not a "
+            "repro_torch HyperXFabric"
+        )
     return canonical(getattr(torus_or_dims, "dims", torus_or_dims))
 
 
@@ -149,18 +160,29 @@ def cut_table(torus_or_dims, t: int, device: DeviceLike = "cuda") -> CutTable:
     """Exact minimum cuts of every cuboid geometry of volume ``t`` in a
     torus (a dims tuple or any object with ``.dims``): a side ``s``
     embedded in torus dimension ``a`` contributes ``0`` if ``s == a`` else
-    ``2 t / s``.  The cuts are scored on ``device``; the table equals the
-    JAX package's ``cut_table`` in int64."""
+    ``2 t / s``.  On a :class:`HyperXFabric` the same enumeration scores
+    the Hamming aligned-box cut ``t * sum_k K_k (S_k - c_k)`` (cuts
+    decrease with side).  The cuts are scored on ``device``; the table
+    equals the JAX package's ``cut_table`` in int64.
+
+    >>> cut_table(HyperXFabric((4, 4), link_bw=1.0), 4, device="cpu").items()
+    [((2, 2), 16), ((4, 1), 12)]
+    """
     resolve_device(device)
     if t < 1:
         raise ValueError(f"t must be >= 1, got {t}")
-    _refuse_hyperx(torus_or_dims, "cut_table")
-    a = canonical(getattr(torus_or_dims, "dims", torus_or_dims))
+    if isinstance(torus_or_dims, HyperXFabric):
+        a = torus_or_dims.dims
+    else:
+        a = _dims_of(torus_or_dims)
     S = _aligned_assignments(a, t)
     if S.shape[0] == 0:
         return CutTable(a, t, S.reshape(0, len(a)), np.zeros(0, dtype=np.int64))
     av = np.array(a, dtype=np.int64)
-    cuts = cut_scores(a, S, t, device=device)
+    if isinstance(torus_or_dims, HyperXFabric):
+        cuts = hamming_cut_scores(a, torus_or_dims.link_multiplicity, S, t, device=device)
+    else:
+        cuts = cut_scores(a, S, t, device=device)
     G = -np.sort(-S, axis=1)  # canonical (descending) rows
     # Group by geometry via a positional integer key (base max(a)+1): a 1-D
     # unique on int64 keys, with the ascending-lexicographic row order of
@@ -244,23 +266,34 @@ def _subset_bound(a: Geometry, n: int, t: int) -> float:
     return theorem31_bound(a, min(t, n - t))
 
 
+def _any_subset_bound(torus_or_dims, n: int, t: int) -> float:
+    """Lower bound on any size-t subset's cut: Theorem 3.1 on a torus, the
+    Lindsey/edge-identity bound on a Hamming graph (exact for uniform link
+    multiplicity), both with complement symmetry."""
+    if isinstance(torus_or_dims, HyperXFabric):
+        return float(hamming.hamming_subset_bound(torus_or_dims.dims, t, torus_or_dims.link_multiplicity))
+    return _subset_bound(_dims_of(torus_or_dims), n, t)
+
+
 def _extreme_cuboid(torus_or_dims, t: int, device: DeviceLike, worst: bool) -> Optional[CuboidOptimum]:
-    a = _dims_of(torus_or_dims)
-    n = volume(a)
+    a = torus_or_dims if isinstance(torus_or_dims, HyperXFabric) else _dims_of(torus_or_dims)
+    n = volume(a.dims if isinstance(a, HyperXFabric) else a)
     if t <= 0 or t > n:
         raise ValueError(f"t must be in (0, {n}], got {t}")
     tbl = cut_table(a, t, device=device)
     if len(tbl) == 0:
         return None
     geom, cut = tbl.max_cut_geometry() if worst else tbl.min_cut_geometry()
-    return CuboidOptimum(geom, cut, _subset_bound(a, n, t))
+    return CuboidOptimum(geom, cut, _any_subset_bound(a, n, t))
 
 
 def optimal_cuboid(torus_or_dims, t: int, device: DeviceLike = "cuda") -> Optional[CuboidOptimum]:
     """Exact minimum-cut cuboid of size t inside the torus (Lemma 3.3
     optimum); ``None`` when no cuboid of exactly ``t`` vertices fits,
     ``ValueError`` for t outside (0, n].  Ties break toward the
-    lexicographically-smallest canonical geometry.
+    lexicographically-smallest canonical geometry.  On a
+    :class:`HyperXFabric` the certificate is the Lindsey bound (exact
+    under uniform link multiplicity).
 
     >>> opt = optimal_cuboid((4, 4, 2), 8, device="cpu")
     >>> opt.geometry, opt.cut, opt.tight
@@ -402,7 +435,28 @@ def bisection_table(
     """Internal bisections of every ``units``-sized geometry: closed-form
     ``2N/L`` for an even longest (node) dimension, the exact cuboid search
     on ``device`` for an odd one.  Raises ``ValueError`` when no cuboid of
-    that size fits."""
+    that size fits.
+
+    On a :class:`HyperXFabric` each box is its own Hamming graph
+    (:meth:`HyperXFabric.sub_fabric`), ranked by its exact Lindsey
+    half-set cut; ``unit_node_dims`` (the Blue Gene/Q node scaling) is
+    rejected there.
+
+    >>> bisection_table(HyperXFabric((16, 4), link_bw=1.0), 16, device="cpu").ranked()
+    [((16, 1), 64), ((4, 4), 16), ((8, 2), 8)]
+    """
+    if isinstance(torus_or_dims, HyperXFabric):
+        if unit_node_dims is not None:
+            raise ValueError(
+                "unit_node_dims is the BG/Q torus node-scaling convention; "
+                "HyperX fabrics rank allocation-unit boxes directly"
+            )
+        fab = torus_or_dims
+        geoms = cut_table(fab, units, device=device).geometries
+        if geoms.shape[0] == 0:
+            raise ValueError(f"no box of {units} units fits in H{fab.dims}")
+        bis = np.array([fab.sub_fabric(tuple(int(x) for x in g)).bisection_links() for g in geoms], dtype=np.int64)
+        return BisectionTable(fab.dims, units, geoms, bis, None)
     a = _dims_of(torus_or_dims)
     geoms = fitting_geometries(a, units, device=device)
     if geoms.shape[0] == 0:
@@ -534,10 +588,22 @@ def advise_partition(
     ((2, 2, 1, 1), 256, 512)
     >>> round(adv.predicted_speedup, 2), adv.is_current_optimal, adv.certified
     (2.0, False, True)
+
+    On a :class:`HyperXFabric` the contention benchmark is all-to-all
+    inside the box (pairing never contends across diameter-1 dimensions)
+    and the certificate is the Lindsey bound on the optimum's half-set.
+
+    >>> adv = advise_partition(HyperXFabric((16, 4), link_bw=1.0), 16, (4, 4), device="cpu")
+    >>> adv.optimal_geometry, adv.current_bisection, adv.optimal_bisection
+    ((16, 1), 16, 64)
+    >>> adv.predicted_speedup, adv.is_current_optimal, adv.certified
+    (4.0, False, True)
     """
     from repro_torch.network.routing import pairing_speedup
 
-    _refuse_hyperx(torus_or_dims, "advise_partition")
+    if isinstance(torus_or_dims, HyperXFabric):
+        return _advise_hyperx(torus_or_dims, units, current_geometry, unit_node_dims=unit_node_dims,
+                              simulate=simulate, device=device)
     a = _dims_of(torus_or_dims)
     tbl = bisection_table(a, units, unit_node_dims, device=device)
     opt_geom, opt_bis = tbl.best()
@@ -569,6 +635,56 @@ def advise_partition(
         optimal_geometry=opt_geom,
         optimal_bisection=opt_bis,
         bound=theorem31_bound(nd_opt, n_nodes // 2),
+        predicted_speedup=predicted,
+        simulated_speedup=simulated,
+    )
+
+
+def _advise_hyperx(
+    fab: HyperXFabric,
+    units: int,
+    current_geometry: Optional[Sequence[int]],
+    *,
+    unit_node_dims: Optional[Sequence[int]],
+    simulate: bool,
+    device: DeviceLike,
+) -> PartitionAdvice:
+    """HyperX body of :func:`advise_partition`: rank boxes by internal
+    Hamming bisection, predict the all-to-all contention ratio with the
+    closed form, certify with the Lindsey half-set bound."""
+    from repro_torch.network.routing import hyperx_all_to_all_max_load
+
+    tbl = bisection_table(fab, units, unit_node_dims, device=device)  # rejects node scaling
+    opt_geom, opt_bis = tbl.best()
+    if current_geometry is None:
+        cur_geom, cur_bis = tbl.worst()
+    else:
+        cur_geom = canonical(tuple(current_geometry) + (1,) * (len(fab.dims) - len(tuple(current_geometry))))
+        if volume(cur_geom) != units:
+            raise ValueError(
+                f"current geometry {cur_geom} has volume {volume(cur_geom)}, expected {units}"
+            )
+        cur_bis = tbl.bisection_of(cur_geom)
+    sub_cur = fab.sub_fabric(cur_geom)
+    sub_opt = fab.sub_fabric(opt_geom)
+    load_cur = hyperx_all_to_all_max_load(sub_cur)
+    load_opt = hyperx_all_to_all_max_load(sub_opt)
+    predicted = load_cur / load_opt if load_opt > 0.0 else 1.0
+    simulated: Optional[float] = None
+    if simulate:
+        from repro_torch.network.netsim import simulate_fabric_traffic
+        from repro_torch.network.patterns import all_to_all
+
+        t_cur = simulate_fabric_traffic(sub_cur, all_to_all(sub_cur.dims), device=device).makespan
+        t_opt = simulate_fabric_traffic(sub_opt, all_to_all(sub_opt.dims), device=device).makespan
+        simulated = t_cur / t_opt if t_opt > 0.0 else 1.0
+    return PartitionAdvice(
+        units=units,
+        current_geometry=cur_geom,
+        current_bisection=cur_bis,
+        optimal_geometry=opt_geom,
+        optimal_bisection=opt_bis,
+        bound=float(hamming.hamming_subset_bound(sub_opt.dims, units // 2, sub_opt.link_multiplicity)),
         predicted_speedup=predicted,
         simulated_speedup=simulated,
     )

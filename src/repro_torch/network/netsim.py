@@ -1,34 +1,50 @@
-"""Flow-level torus network simulation (port of ``repro.network.netsim``'s
-DOR paths and its drain through the compiled backend).
+"""Flow-level network simulation (port of ``repro.network.netsim``).
 
-Every message becomes one flow along its minimal DOR path; an antipodal
-tie (a ring distance of exactly half the ring) splits it into two
-half-volume subflows per tied dimension.  :func:`simulate_flows` shares
-each link's bandwidth max-min fairly among the flows crossing it and
-advances time from one completion to the next, as the JAX package's
-``simulate_flows(..., backend="xla")`` does, through
+Every message becomes one flow along a minimal path; an antipodal tie (a
+ring distance of exactly half the ring) splits it into two half-volume
+subflows per tied dimension.  Paths come from one of the routers:
+
+* ``mode="dor"`` — dimension-ordered routing (:func:`dor_paths`, host
+  NumPy, link for link what ``route_dor`` accumulates);
+* ``mode="adaptive"`` — minimal-adaptive (:func:`adaptive_paths`): each
+  flow routes one whole dimension per round, leaving DOR's order only for
+  a dimension whose segment is much cheaper under the pattern's frozen DOR
+  field, decided on ``device``
+  (:func:`repro_torch.network.backend.adaptive_links`);
+* on a HyperX fabric, ``"minimal"`` and ``"dal"``
+  (:func:`fabric_paths`, through
+  :func:`repro_torch.network.backend.hyperx_flows`).
+
+:func:`simulate_flows` shares each link's bandwidth max-min fairly among
+the flows crossing it and advances time from one completion to the next,
+as the JAX package's ``simulate_flows`` does, through
 :func:`repro_torch.network.backend.prepare_drain` and
-:func:`repro_torch.network.backend.drain` on ``device``.
-
-Path building (tie expansion and link enumeration) is host-side NumPy,
-copied from the JAX package, as are the paper's validation experiment
+:func:`repro_torch.network.backend.drain` on ``device``; with
+``record_utilization=True`` the drain also records the per-step link
+utilization timeline on the device.  :func:`compare_routing` and
+:func:`compare_fabric_routing` measure how much of a pattern's contention
+routing alone recovers.  The paper's validation experiment
 (:func:`validate_prediction`) and the phased schedules of ring
-collectives (:func:`simulate_phases`).  Not ported: the minimal-adaptive router
-(``adaptive_paths``), the HyperX router (``fabric_paths``: HyperX paths
-built by the JAX package drain here through
-:func:`repro_torch.interop.flow_paths_from_numpy`) and the utilization
-timeline, a host-side diagnostic the compiled drain refuses as well.
+collectives (:func:`simulate_phases`) are host code copied from the JAX
+package.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from repro_torch.device import DeviceLike
-from repro_torch.network.backend import drain, prepare_drain
+from repro_torch.network.backend import (
+    adaptive_links,
+    drain,
+    drain_timeline,
+    hyperx_flows,
+    prepare_drain,
+)
+from repro_torch.network.fabric import HyperXFabric, Torus, TorusFabric
 from repro_torch.network.geometry import volume
 from repro_torch.network.routing import max_link_load
 
@@ -41,8 +57,16 @@ __all__ = [
     "FlowSimResult",
     "PhasedSimResult",
     "PredictionValidation",
+    "RoutingComparison",
+    "UtilizationSample",
+    "adaptive_paths",
+    "build_paths",
+    "compare_fabric_routing",
+    "compare_routing",
     "dor_paths",
+    "fabric_paths",
     "link_capacities",
+    "simulate_fabric_traffic",
     "simulate_flows",
     "simulate_phases",
     "simulate_traffic",
@@ -257,6 +281,70 @@ def dor_paths(
     )
 
 
+def adaptive_paths(
+    dims: Sequence[int],
+    src: np.ndarray,
+    dst: np.ndarray,
+    vol,
+    split_ties: bool = True,
+    divert_margin: float = 0.75,
+    device: DeviceLike = "cuda",
+) -> FlowPaths:
+    """Minimal-adaptive paths: per-flow least-loaded dimension order.
+
+    Two passes, both on ``device``
+    (:func:`repro_torch.network.backend.adaptive_links`).  Pass 1 routes
+    everything with DOR into the steady link-load field the pattern would
+    produce.  Pass 2 re-routes every flow against that frozen field: at
+    each step the flow compares the mean load along the whole candidate
+    segment of each unrouted dimension and leaves DOR's
+    lowest-dimension-first order only when some dimension is cheaper than
+    the default by more than the ``divert_margin`` factor.  All decisions
+    are simultaneous, so a translation-invariant pattern keeps exactly
+    DOR's uniform loads and makespan, while skewed patterns (hotspot
+    rows, bad permutations) rebalance.  Directions stay minimal and ties
+    still split, so the total hop volume equals DOR's.  For integer or
+    dyadic volumes the paths equal the JAX package's id for id."""
+    dims = tuple(int(a) for a in dims)
+    vol = np.asarray(vol)
+    M = np.atleast_2d(np.asarray(src)).shape[0]
+    mvol = np.broadcast_to(np.asarray(vol, dtype=np.float64), (M,))
+    msrc = np.atleast_2d(np.asarray(src, dtype=np.int64))
+    mdst = np.atleast_2d(np.asarray(dst, dtype=np.int64))
+    src, dst, vol, msg, fwd = _expand_tie_flows(dims, src, dst, vol, split_ties)
+    n_messages = int(msg.max()) + 1 if msg.shape[0] else 0
+    link_ids, flow_ids = adaptive_links(
+        dims, (msrc, mdst, mvol), (src, dst, fwd), split_ties=split_ties,
+        divert_margin=divert_margin, device=device,
+    )
+    return FlowPaths(
+        dims=dims,
+        n_messages=n_messages,
+        msg=msg,
+        vol=vol,
+        link_ids=link_ids,
+        flow_ids=flow_ids,
+        mode="adaptive",
+    )
+
+
+def build_paths(
+    dims: Sequence[int],
+    traffic: Traffic,
+    mode: str = "dor",
+    split_ties: bool = True,
+    device: DeviceLike = "cuda",
+) -> FlowPaths:
+    """Route a ``(src, dst, vol)`` pattern with the named router (``"dor"``
+    or ``"adaptive"``, the latter on ``device``)."""
+    src, dst, vol = traffic
+    if mode == "dor":
+        return dor_paths(dims, src, dst, vol, split_ties=split_ties)
+    if mode == "adaptive":
+        return adaptive_paths(dims, src, dst, vol, split_ties=split_ties, device=device)
+    raise ValueError(f"unknown routing mode {mode!r}; expected 'dor' or 'adaptive'")
+
+
 def link_capacities(
     dims: Sequence[int], link_bw: float = 1.0, double_link_on_2: bool = True
 ) -> np.ndarray:
@@ -279,6 +367,22 @@ def link_capacities(
 # The simulator.
 # ---------------------------------------------------------------------------
 @dataclass(frozen=True)
+class UtilizationSample:
+    """One step of the link-utilization timeline: the interval ``[start,
+    end)``, the max and mean utilization over links carrying any active
+    flow, the active subflow count, and the full per-link utilization
+    tensor (``(D, 2, *dims)`` on a torus, flat slots on an
+    explicit-capacity fabric)."""
+
+    start: float
+    end: float
+    max_utilization: float
+    mean_utilization: float
+    active_flows: int
+    utilization: Optional[np.ndarray] = None
+
+
+@dataclass(frozen=True)
 class FlowSimResult:
     """Outcome of one flow-level simulation.
 
@@ -286,7 +390,9 @@ class FlowSimResult:
     subflows), ``makespan`` the overall finish, ``ideal_time`` the
     zero-contention bound (largest message at line rate) and ``slowdown``
     their ratio — the measured contention multiplier the static engine
-    predicts as ``max_link_load``.
+    predicts as ``max_link_load``.  ``timeline`` holds the per-step
+    utilization samples of a run with ``record_utilization=True`` (empty
+    otherwise).
     """
 
     dims: Tuple[int, ...]
@@ -297,6 +403,7 @@ class FlowSimResult:
     steps: int
     ideal_time: float
     link_loads: np.ndarray  # (D, 2, *dims) total routed volume
+    timeline: List[UtilizationSample] = field(default_factory=list)
 
     @property
     def slowdown(self) -> float:
@@ -308,7 +415,11 @@ class FlowSimResult:
 
 
 def _package_result(
-    paths: FlowPaths, flow_completion: np.ndarray, steps: int, link_bw: float
+    paths: FlowPaths,
+    flow_completion: np.ndarray,
+    steps: int,
+    link_bw: float,
+    timeline: Optional[List[UtilizationSample]] = None,
 ) -> FlowSimResult:
     """Assemble a :class:`FlowSimResult` from per-subflow finish times."""
     F = paths.n_flows
@@ -330,6 +441,7 @@ def _package_result(
         steps=steps,
         ideal_time=float(msg_vol.max()) / link_bw if msg_vol.shape[0] else 0.0,
         link_loads=paths.link_loads(),
+        timeline=timeline if timeline is not None else [],
     )
 
 
@@ -342,21 +454,35 @@ def simulate_flows(
     device: DeviceLike = "cuda",
 ) -> FlowSimResult:
     """Drain a routed pattern under max-min fair link sharing on
-    ``device``: the JAX package's ``simulate_flows(..., backend="xla")``
-    (the same completion order and steps, makespans within 1e-9 relative
-    of the NumPy engine).  Raises ``RuntimeError`` after ``max_steps``
-    steps, and ``ValueError`` for ``record_utilization=True``: the
-    timeline is a host-side diagnostic of the NumPy engine."""
+    ``device``: the JAX package's ``simulate_flows`` (the same completion
+    order and steps, makespans within 1e-9 relative of the NumPy engine).
+    Raises ``RuntimeError`` after ``max_steps`` steps.
+
+    ``record_utilization=True`` also keeps the per-step utilization
+    timeline, recorded on the device inside the drain
+    (:func:`repro_torch.network.backend.drain_timeline`): each sample
+    holds a full per-link tensor, so keep it to drains of bounded
+    steps."""
     if link_bw <= 0.0:
         raise ValueError("link_bw must be positive")
-    if record_utilization:
-        raise ValueError(
-            "record_utilization is a numpy-only diagnostic of the JAX package's "
-            "engine; the port drains through its compiled passes"
-        )
     plan = prepare_drain(paths, link_bw, double_link_on_2, device=device)
-    flow_completion, steps = drain(plan, max_steps=max_steps)
-    return _package_result(paths, flow_completion, steps, link_bw)
+    if not record_utilization:
+        flow_completion, steps = drain(plan, max_steps=max_steps)
+        return _package_result(paths, flow_completion, steps, link_bw)
+    flow_completion, steps, stats, util = drain_timeline(plan, max_steps=max_steps)
+    shape = None if paths.capacities is not None else (len(paths.dims), 2) + tuple(paths.dims)
+    timeline = [
+        UtilizationSample(
+            start=float(st[0]),
+            end=float(st[1]),
+            max_utilization=float(st[2]),
+            mean_utilization=float(st[3]),
+            active_flows=int(st[4]),
+            utilization=u if shape is None else u.reshape(shape),
+        )
+        for st, u in zip(stats, util)
+    ]
+    return _package_result(paths, flow_completion, steps, link_bw, timeline)
 
 
 def simulate_traffic(
@@ -369,17 +495,9 @@ def simulate_traffic(
     record_utilization: bool = False,
     device: DeviceLike = "cuda",
 ) -> FlowSimResult:
-    """Route a ``(src, dst, vol)`` pattern with DOR and drain it in one
-    call.  ``mode="adaptive"`` (the JAX package's minimal-adaptive router)
-    is not ported."""
-    if mode == "adaptive":
-        raise NotImplementedError(
-            "adaptive_paths is not ported (ROADMAP Queue 1, the network engines); use mode='dor'"
-        )
-    if mode != "dor":
-        raise ValueError(f"unknown routing mode {mode!r}; expected 'dor' or 'adaptive'")
-    src, dst, vol = traffic
-    paths = dor_paths(dims, src, dst, vol, split_ties=split_ties)
+    """Route a ``(src, dst, vol)`` pattern (``mode`` ``"dor"`` or
+    ``"adaptive"``) and drain it on ``device`` in one call."""
+    paths = build_paths(dims, traffic, mode=mode, split_ties=split_ties, device=device)
     return simulate_flows(
         paths,
         link_bw=link_bw,
@@ -504,3 +622,132 @@ def simulate_phases(
         results.append(res)
         total += res.makespan
     return PhasedSimResult(phases=tuple(results), total_time=total)
+
+
+# ---------------------------------------------------------------------------
+# Routing-mode comparison (what routing alone can recover).
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class RoutingComparison:
+    """Baseline (DOR, or HyperX minimal) against adaptive (or DAL)
+    makespans for one pattern on one fabric."""
+
+    dims: Tuple[int, ...]
+    dor_makespan: float
+    adaptive_makespan: float
+
+    @property
+    def recovered_fraction(self) -> float:
+        """Fraction of the baseline makespan the adaptive router removed
+        (0.0 when routing cannot help, e.g. any translation-invariant
+        pattern, whose load field is already uniform)."""
+        if self.dor_makespan <= 0.0:
+            return 0.0
+        return (self.dor_makespan - self.adaptive_makespan) / self.dor_makespan
+
+
+def compare_routing(
+    dims: Sequence[int],
+    traffic: Traffic,
+    split_ties: bool = True,
+    link_bw: float = 1.0,
+    double_link_on_2: bool = True,
+    device: DeviceLike = "cuda",
+) -> RoutingComparison:
+    """How much of a pattern's contention routing alone recovers: the same
+    traffic drained on ``device`` under DOR and under the minimal-adaptive
+    router.  The paper's argument is geometric: for the contention its
+    partition geometries avoid, the recovered fraction is ~0 — no minimal
+    router spreads a uniform load field any flatter — whereas geometry
+    changes the field itself."""
+    dims = tuple(int(a) for a in dims)
+    kw = dict(split_ties=split_ties, link_bw=link_bw, double_link_on_2=double_link_on_2, device=device)
+    t_dor = simulate_traffic(dims, traffic, mode="dor", **kw).makespan
+    t_adp = simulate_traffic(dims, traffic, mode="adaptive", **kw).makespan
+    return RoutingComparison(dims=dims, dor_makespan=t_dor, adaptive_makespan=t_adp)
+
+
+# ---------------------------------------------------------------------------
+# Fabric-dispatching entry points (torus or HyperX through one API).
+# ---------------------------------------------------------------------------
+def _fabric_dims(fabric) -> Tuple[int, ...]:
+    if isinstance(fabric, (TorusFabric, Torus, HyperXFabric)):
+        return fabric.dims
+    return tuple(int(a) for a in fabric)
+
+
+def fabric_paths(
+    fabric,
+    traffic: Traffic,
+    mode: Optional[str] = None,
+    split_ties: bool = True,
+    device: DeviceLike = "cuda",
+) -> FlowPaths:
+    """Route a ``(src, dst, vol)`` pattern on any fabric.
+
+    Torus fabrics (or plain dims) go to :func:`build_paths` (``mode``
+    ``"dor"``, the default, or ``"adaptive"``).  HyperX fabrics route
+    with :func:`repro_torch.network.backend.hyperx_flows` on ``device``
+    (``mode`` ``"minimal"``, the default, or ``"dal"``) and carry the
+    fabric's dense per-slot capacities in units of ``link_bw``, so the
+    same max-min drain prices trunked clique links."""
+    if isinstance(fabric, HyperXFabric):
+        src, dst, vol = traffic
+        M = np.atleast_2d(np.asarray(src)).shape[0]
+        volb = np.broadcast_to(np.asarray(vol, dtype=np.float64), (M,))
+        msg, fvol, link_ids, flow_ids = (
+            t.cpu().numpy() for t in hyperx_flows(fabric.dims, src, dst, volb, mode or "minimal", device=device)
+        )
+        return FlowPaths(
+            dims=fabric.dims,
+            n_messages=M,
+            msg=msg,
+            vol=fvol,
+            link_ids=link_ids,
+            flow_ids=flow_ids,
+            mode=mode or "minimal",
+            capacities=fabric.links().dense_capacities() / fabric.link_bw,
+        )
+    return build_paths(_fabric_dims(fabric), traffic, mode=mode or "dor", split_ties=split_ties, device=device)
+
+
+def simulate_fabric_traffic(
+    fabric,
+    traffic: Traffic,
+    mode: Optional[str] = None,
+    split_ties: bool = True,
+    link_bw: float = 1.0,
+    double_link_on_2: bool = True,
+    record_utilization: bool = False,
+    device: DeviceLike = "cuda",
+) -> FlowSimResult:
+    """Route and drain a pattern on any fabric in one call, on ``device``
+    (on a torus, :func:`simulate_traffic` exactly)."""
+    paths = fabric_paths(fabric, traffic, mode=mode, split_ties=split_ties, device=device)
+    return simulate_flows(
+        paths,
+        link_bw=link_bw,
+        double_link_on_2=double_link_on_2,
+        record_utilization=record_utilization,
+        device=device,
+    )
+
+
+def compare_fabric_routing(
+    fabric,
+    traffic: Traffic,
+    split_ties: bool = True,
+    link_bw: float = 1.0,
+    double_link_on_2: bool = True,
+    device: DeviceLike = "cuda",
+) -> RoutingComparison:
+    """Baseline against adaptive routing on any fabric: on a torus DOR
+    against minimal-adaptive (:func:`compare_routing`), on HyperX minimal
+    dimension-ordered against DAL.  ``recovered_fraction`` is ~0 for
+    steady translation-invariant patterns on both topologies and positive
+    only for skewed fields."""
+    base_mode, adp_mode = ("minimal", "dal") if isinstance(fabric, HyperXFabric) else ("dor", "adaptive")
+    kw = dict(split_ties=split_ties, link_bw=link_bw, double_link_on_2=double_link_on_2, device=device)
+    t_base = simulate_fabric_traffic(fabric, traffic, mode=base_mode, **kw).makespan
+    t_adp = simulate_fabric_traffic(fabric, traffic, mode=adp_mode, **kw).makespan
+    return RoutingComparison(dims=_fabric_dims(fabric), dor_makespan=t_base, adaptive_makespan=t_adp)

@@ -10,8 +10,13 @@ parallel links under the Blue Gene/Q convention, which
 :func:`max_link_load` applies at query time.  The closed forms for
 translation-invariant patterns (:func:`uniform_offset_max_load`,
 :func:`all_to_all_max_load`) and the pairing-benchmark prediction are
-host arithmetic, copied from the JAX package.  The HyperX routers are not
-ported.
+host arithmetic, copied from the JAX package.
+
+On a :class:`~repro_torch.network.fabric.HyperXFabric`,
+:func:`route_hyperx` routes minimally (dimension-ordered direct clique
+hops) or with DAL (load-balanced over the dimension orders) through
+:func:`repro_torch.network.backend.hyperx_flows` on ``device``;
+:func:`route_pattern` dispatches on the fabric.
 """
 
 from __future__ import annotations
@@ -22,8 +27,8 @@ from typing import Iterable, List, Optional, Sequence, Tuple
 import numpy as np
 
 from repro_torch.device import DeviceLike
-from repro_torch.network.backend import route_loads
-from repro_torch.network.fabric import Torus, TorusFabric
+from repro_torch.network.backend import hyperx_blocks, hyperx_flows, hyperx_loads, route_loads
+from repro_torch.network.fabric import HyperXFabric, Torus, TorusFabric
 from repro_torch.network.geometry import canonical, volume
 
 Coord = Tuple[int, ...]
@@ -33,10 +38,13 @@ __all__ = [
     "LinkLoads",
     "PairingPrediction",
     "all_to_all_max_load",
+    "hyperx_all_to_all_max_load",
+    "hyperx_max_link_load",
     "max_link_load",
     "pairing_speedup",
     "predict_pairing_time",
     "route_dor",
+    "route_hyperx",
     "route_pattern",
     "simulate_pattern",
     "uniform_offset_max_load",
@@ -262,6 +270,85 @@ def pairing_speedup(dims_a: Sequence[int], dims_b: Sequence[int], split_ties: bo
     return a.max_link_load / b.max_link_load
 
 
+# ---------------------------------------------------------------------------
+# HyperX routing: minimal (dimension-ordered direct hops) and DAL.
+# ---------------------------------------------------------------------------
+def route_hyperx(
+    fabric: HyperXFabric,
+    src: np.ndarray,
+    dst: np.ndarray,
+    vol,
+    mode: str = "minimal",
+    rounds: int = 2,
+    device: DeviceLike = "cuda",
+) -> np.ndarray:
+    """Per-directed-link loads of a message batch on a HyperX fabric, on
+    ``device``: a flat ``(N * sum(S_k),)`` vector in the dense link-id
+    layout of :meth:`~repro_torch.network.fabric.HyperXFabric.links`
+    (unused self-slots stay zero).  ``mode="minimal"`` corrects
+    coordinates in canonical dimension order — every hop is direct, path
+    length equals Hamming distance; ``mode="dal"`` also load-balances
+    across dimension orders (:func:`repro_torch.network.backend.hyperx_flows`).
+    Minimal loads are exact sums, equal to the JAX package's bit for bit
+    for integer volumes.
+
+    >>> import numpy as np
+    >>> hx = HyperXFabric((4, 4), link_bw=1.0)
+    >>> loads = route_hyperx(hx, np.array([[0, 0]]), np.array([[2, 3]]), 1.0, device="cpu")
+    >>> float(loads.sum())   # two direct hops: dim 0 then dim 1
+    2.0
+    """
+    M = np.atleast_2d(np.asarray(src)).shape[0]
+    vol = np.broadcast_to(np.asarray(vol, dtype=np.float64), (M,))
+    _, n_slots = hyperx_blocks(fabric.dims)
+    _, fvol, link_ids, flow_ids = hyperx_flows(fabric.dims, src, dst, vol, mode, rounds, device=device)
+    if not link_ids.shape[0]:
+        return np.zeros(n_slots)
+    return hyperx_loads(fvol, link_ids, flow_ids, n_slots)
+
+
+def hyperx_max_link_load(fabric: HyperXFabric, loads: np.ndarray) -> float:
+    """Max per-physical-link load of a :func:`route_hyperx` vector:
+    dimension k's ``K_k`` trunked parallel links share their dimension's
+    traffic, dividing the effective load (the HyperX analogue of the torus
+    double-link halving)."""
+    dims = fabric.dims
+    n = volume(dims)
+    m = 0.0
+    base = 0
+    for k, a in enumerate(dims):
+        block = loads[base: base + n * a]
+        if block.shape[0]:
+            m = max(m, float(block.max()) / fabric.link_multiplicity[k])
+        base += n * a
+    return m
+
+
+def hyperx_all_to_all_max_load(fabric: HyperXFabric, vol_per_pair: float = 1.0) -> float:
+    """Exact max effective link load of all-to-all on a HyperX fabric under
+    minimal dimension-ordered routing: the dim-k link out of any cell is
+    shared by exactly ``N / S_k`` ordered pairs, so
+
+        max load = vol_per_pair * N / min_k (S_k * K_k).
+
+    Covering a dimension fully maximises the denominator, so elongated
+    boxes minimise all-to-all contention on HyperX, the opposite of the
+    torus preference.
+
+    >>> hyperx_all_to_all_max_load(HyperXFabric((4, 4), link_bw=1.0))
+    4.0
+    >>> hyperx_all_to_all_max_load(HyperXFabric((16, 1), link_bw=1.0))
+    1.0
+    """
+    n = volume(fabric.dims)
+    denom = min(
+        a * k for a, k in zip(fabric.dims, fabric.link_multiplicity) if a > 1
+    ) if any(a > 1 for a in fabric.dims) else None
+    if denom is None:
+        return 0.0
+    return vol_per_pair * n / denom
+
+
 def route_pattern(
     fabric,
     src: np.ndarray,
@@ -272,14 +359,17 @@ def route_pattern(
     split_ties: bool = True,
     device: DeviceLike = "cuda",
 ) -> np.ndarray:
-    """Route a message batch on a torus (a :class:`TorusFabric`, a
-    :class:`Torus` or plain dims): :func:`route_dor`'s ``(D, 2, *dims)``
-    tensor.  ``mode`` must be ``"dor"`` or None; the HyperX branch of the
-    JAX package is not ported."""
-    if hasattr(fabric, "link_multiplicity"):
-        raise NotImplementedError(
-            "route_pattern on a HyperXFabric is not ported (ROADMAP Queue 1, the HyperX slice)"
-        )
+    """Route a message batch on any fabric, on ``device``.
+
+    * a :class:`TorusFabric`, a :class:`Torus` or plain dims:
+      :func:`route_dor`'s ``(D, 2, *dims)`` tensor (``mode`` must be
+      ``"dor"`` or None; the adaptive torus router lives in
+      :mod:`repro_torch.network.netsim`, where path state exists);
+    * a :class:`HyperXFabric`: :func:`route_hyperx`'s flat load vector
+      (``mode`` ``"minimal"``, the default, or ``"dal"``; ``split_ties``
+      does not apply: clique hops have no antipodal ties)."""
+    if isinstance(fabric, HyperXFabric):
+        return route_hyperx(fabric, src, dst, vol, mode=mode or "minimal", device=device)
     dims = fabric.dims if isinstance(fabric, (TorusFabric, Torus)) else tuple(int(a) for a in fabric)
     if mode not in (None, "dor"):
         raise ValueError(

@@ -62,7 +62,7 @@ from repro_torch.network.allocation import (
 from repro_torch.network.geometry import Geometry
 from repro_torch.network.isoperimetry import best_bisection_geometry, scaled_node_dims
 from repro_torch.network.placement import cells_index, first_fits, placement_cells
-from repro_torch.network.routing import predict_pairing_time
+from repro_torch.network.routing import hyperx_all_to_all_max_load, predict_pairing_time
 from repro_torch.obs import TRACER as _TRACER
 from repro_torch.runtime.fault_tolerance import HeartbeatMonitor, failure_cells
 
@@ -205,6 +205,11 @@ class SchedulerService:
     ):
         self.machine = MachineState(machine_dims, device=device)
         self.policy = policy
+        if unit_node_dims is not None and self.machine.is_hyperx:
+            raise ValueError(
+                "unit_node_dims is the BG/Q torus node-scaling convention; "
+                "HyperX machines schedule allocation-unit boxes directly"
+            )
         self.unit_node_dims = unit_node_dims
         self.link_bw = float(link_bw)
         self.backfill = bool(backfill)
@@ -510,8 +515,14 @@ class SchedulerService:
             placed = self.policy.allocate(self.machine, request)
         if placed is None:
             return False
-        node_dims = scaled_node_dims(placed.geometry, self.unit_node_dims)
-        pred_time = predict_pairing_time(node_dims, 1.0, self.link_bw).time_per_volume
+        if self.machine.is_hyperx:
+            # HyperX dimensions have diameter 1, so bisection pairing never
+            # contends; the geometry-sensitive benchmark is the box's
+            # internal all-to-all (closed form, exact).
+            pred_time = hyperx_all_to_all_max_load(self.machine.fabric.sub_fabric(placed.geometry)) / self.link_bw
+        else:
+            node_dims = scaled_node_dims(placed.geometry, self.unit_node_dims)
+            pred_time = predict_pairing_time(node_dims, 1.0, self.link_bw).time_per_volume
         opt_bis = self._optimal_bisection(request.units)
         job = ScheduledJob(
             request=request,

@@ -1,5 +1,5 @@
-"""Telemetry of the port: the span tracer, wall-clock timers and the
-network passes' dispatch counts (counterpart of ``repro.obs``' tracer).
+"""The span tracer, wall-clock timers and the network passes' dispatch
+counts (counterpart of ``repro.obs.trace``).
 
 The tracer is the port's own copy of ``repro.obs.trace``: one process-wide
 :class:`Tracer` (:data:`TRACER`) records named wall-clock spans with
@@ -12,8 +12,7 @@ result.  The allocation engines emit ``placement.search``,
 PyTorch queues CUDA work asynchronously, so a caller timing card work
 runs ``torch.cuda.synchronize()`` (``repro_torch.device.synchronize``)
 inside the ``with`` block, where the JAX launcher calls
-``block_until_ready``.  The metrics registry and the contention
-attribution of ``repro.obs`` are not ported.
+``block_until_ready``.
 """
 
 from __future__ import annotations
@@ -25,20 +24,7 @@ import time
 from collections import Counter
 from typing import Any, Dict, List, Optional
 
-__all__ = [
-    "DISPATCHES",
-    "Span",
-    "TRACER",
-    "Timer",
-    "Tracer",
-    "count_dispatch",
-    "disable_tracing",
-    "enable_tracing",
-    "export_chrome_trace",
-    "timer",
-    "trace",
-    "tracing_enabled",
-]
+__all__ = ["DISPATCHES", "Span", "TRACER", "Timer", "Tracer", "count_dispatch"]
 
 #: Calls of each pass of ``repro_torch.network``, keyed by (pass, device
 #: type) — the counterpart of the JAX package's ``backend.dispatches``
@@ -225,34 +211,3 @@ class Tracer:
 
 #: The process-wide tracer every instrumented module records into.
 TRACER = Tracer()
-
-
-def enable_tracing(clear: bool = False) -> None:
-    """Turn the process-wide tracer on (``clear=True`` drops prior events)."""
-    TRACER.enable(clear=clear)
-
-
-def disable_tracing() -> None:
-    """Turn the process-wide tracer off (events are kept)."""
-    TRACER.disable()
-
-
-def tracing_enabled() -> bool:
-    """Whether the process-wide tracer is recording."""
-    return TRACER.enabled
-
-
-def trace(name: str, **args: Any):
-    """Open a span on the process-wide tracer (no-op while disabled)."""
-    return TRACER.span(name, **args)
-
-
-def timer(name: str, **args: Any) -> Timer:
-    """An always-measuring :class:`Timer` on the process-wide tracer."""
-    return TRACER.timer(name, **args)
-
-
-def export_chrome_trace(path: Optional[str] = None) -> Dict[str, Any]:
-    """The process-wide tracer's Chrome trace object (written to ``path``
-    when given)."""
-    return TRACER.export(path)

@@ -644,6 +644,82 @@ def test_planner_rows_on_the_card_equal_cpu(cuda, arch):
 
 
 # ---------------------------------------------------------------------------
+# The rest of the network engines: the adaptive router, the timeline,
+# contention attribution and HyperX, on the card against the CPU path.
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("dims", [(16, 4, 4, 4, 2), (8, 8, 4, 4, 2), (7, 5, 3)])
+def test_engines_adaptive_paths_on_the_card_equal_cpu(cuda, dims):
+    """cumsum prefixes of an integer field are exact on the card, so every
+    decision and link id equals the CPU path's."""
+    for traffic in (net.bisection_pairing(dims), _net_messages(3, dims, 2048), net.hotspot_line(dims)):
+        a = net.adaptive_paths(dims, *traffic, device="cuda")
+        b = net.adaptive_paths(dims, *traffic, device="cpu")
+        assert np.array_equal(a.link_ids, b.link_ids) and np.array_equal(a.flow_ids, b.flow_ids)
+    cmp = net.compare_routing(dims, net.hotspot_line(dims), device="cuda")
+    assert dataclasses.astuple(cmp) == dataclasses.astuple(net.compare_routing(dims, net.hotspot_line(dims), device="cpu"))
+
+
+def test_engines_timeline_on_the_card_matches_cpu(cuda):
+    dims = (8, 6, 4)
+    paths = net.adaptive_paths(dims, *_net_messages(4, dims, 600), device="cuda")
+    res = net.simulate_flows(paths, record_utilization=True, device="cuda")
+    ref = net.simulate_flows(paths, record_utilization=True, device="cpu")
+    assert res.steps == ref.steps == len(res.timeline) > 1
+    for a, b in zip(res.timeline, ref.timeline):
+        assert a.active_flows == b.active_flows
+        np.testing.assert_allclose([a.start, a.end, a.max_utilization, a.mean_utilization],
+                                   [b.start, b.end, b.max_utilization, b.mean_utilization], rtol=1e-9, atol=1e-12)
+        np.testing.assert_allclose(a.utilization, b.utilization, rtol=1e-9, atol=1e-12)
+
+
+def test_engines_attribution_on_the_card_equals_cpu(cuda):
+    from repro_torch import obs
+
+    reports = []
+    for dev in ("cuda", "cpu"):
+        m = net.MachineState((16, 16, 8), device=dev)
+        for jid, oriented, offset in [(0, (12, 4, 2), (0, 0, 0)), (1, (4, 4, 2), (12, 0, 0)), (2, (4, 10, 4), (0, 4, 2))]:
+            m.commit(jid, tuple(sorted(oriented, reverse=True)), oriented, offset)
+        reports.append(obs.attribute_contention(m, top_hotspots=10))
+    card, cpu = reports
+    assert [dataclasses.astuple(j) for j in card.jobs] == [dataclasses.astuple(j) for j in cpu.jobs]
+    assert [(h.dim, h.direction, h.cell, h.load, h.shares) for h in card.hotspots] == \
+        [(h.dim, h.direction, h.cell, h.load, h.shares) for h in cpu.hotspots]
+    assert card.cross_load == cpu.cross_load > 0.0
+    assert obs.render_dashboard(card) == obs.render_dashboard(cpu)
+
+
+@pytest.mark.parametrize("dims, mult", [((16, 16, 4), None), ((8, 6), (1, 3))])
+def test_engines_hyperx_routing_on_the_card_matches_cpu(cuda, dims, mult):
+    hx = net.HyperXFabric(dims, mult, link_bw=1.0)
+    for traffic in (net.all_to_all(dims), _net_messages(5, dims, 20000), net.hotspot_line(dims)):
+        minimal = net.route_hyperx(hx, *traffic, device="cuda")
+        assert np.array_equal(minimal, net.route_hyperx(hx, *traffic, device="cpu"))
+        np.testing.assert_allclose(net.route_hyperx(hx, *traffic, mode="dal", device="cuda"),
+                                   net.route_hyperx(hx, *traffic, mode="dal", device="cpu"), rtol=1e-12, atol=0)
+    pod = net.HyperXFabric((16, 4), link_bw=1.0)
+    assert net.cut_table(pod, 16, device="cuda").items() == net.cut_table(pod, 16, device="cpu").items()
+    a = net.compare_fabric_routing(pod, net.hotspot_line((16, 4)), device="cuda")
+    b = net.compare_fabric_routing(pod, net.hotspot_line((16, 4)), device="cpu")
+    np.testing.assert_allclose(dataclasses.astuple(a)[1:], dataclasses.astuple(b)[1:], rtol=1e-9)
+
+
+def test_engines_moe_dispatch_on_the_card_equals_cpu(cuda):
+    """The dispatch's exclusive cumulative count is integer-exact on the
+    card: the MoE layer's slots, and so its output, match the CPU's."""
+    from repro_torch.models import moe
+
+    cfg = get_arch("mixtral-8x7b").reduced()
+    gen = torch.Generator().manual_seed(0)
+    p = moe.init_moe(gen, cfg, torch.float32, "cpu")
+    x = torch.randn(2, 64, cfg.d_model, generator=gen)
+    y_cpu, aux_cpu = moe.apply_moe(p, x, cfg)
+    y, aux = moe.apply_moe({k: v.cuda() for k, v in p.items()}, x.cuda(), cfg)
+    torch.testing.assert_close(y.cpu(), y_cpu, rtol=2e-4, atol=2e-4)
+    assert float(aux["moe_drop_rate"]) == float(aux_cpu["moe_drop_rate"])
+
+
+# ---------------------------------------------------------------------------
 # The distributed layer: Strassen-Winograd and the collective-matmul rings
 # ---------------------------------------------------------------------------
 def test_strassen_depth2_on_the_card_matches_float64(cuda):

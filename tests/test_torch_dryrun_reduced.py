@@ -1,8 +1,8 @@
 """Every arch's train (2 microbatches), prefill and decode cell through the
 port's dry-run, at reduced widths on a fake (data 2, model 4) process group
-in one child process: each cell that runs has the JAX specs' state bytes
-and JAX's analytic terms; the MoE cells stop where DTensor has no sharding
-strategy for the dispatch's ``aten.searchsorted`` (ROADMAP Queue 1)."""
+in one child process: each cell, the MoE ones included (their dispatch
+and combine run on each rank's batch shards), has the JAX specs' state
+bytes and JAX's analytic terms."""
 
 import json
 import os
@@ -24,7 +24,6 @@ SRC = Path(__file__).resolve().parents[1] / "src"
 MESH = {"data": 2, "model": 4}
 SEQ, BATCH = 16, 4
 KINDS = ("train", "prefill", "decode")
-NO_STRATEGY = {"mixtral-8x7b", "phi3.5-moe-42b-a6.6b"}  # aten.searchsorted.Tensor
 
 SWEEP_PROG = textwrap.dedent(
     """
@@ -67,9 +66,6 @@ def sweep(tmp_path_factory):
 @pytest.mark.parametrize("name,kind", [(n, k) for n in sorted(jax_all_archs()) for k in KINDS])
 def test_reduced_cell_on_a_fake_two_by_four_mesh(sweep, name, kind):
     row = sweep[(name, kind)]
-    if name in NO_STRATEGY:
-        assert "aten.searchsorted" in row.get("error", ""), row
-        return
     assert "error" not in row, row["error"][-2000:]
     rec = row["record"]
     jcfg = jax_get_arch(name).reduced()

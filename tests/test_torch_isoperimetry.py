@@ -194,7 +194,12 @@ def test_routing_closed_forms_and_validation_match_jax():
                           jax_routing.route_pattern(rn.TorusFabric.bgq(dims), traffic[0], traffic[1], 1.0))
     with pytest.raises(ValueError, match="mode='dor'"):
         port_routing.route_pattern(dims, traffic[0], traffic[1], 1.0, mode="dal", device=CPU)
-    with pytest.raises(NotImplementedError, match="HyperX"):
+    hx = tn.HyperXFabric(dims, link_bw=1.0)
+    assert np.array_equal(port_routing.route_pattern(hx, traffic[0], traffic[1], 1.0, device=CPU),
+                          jax_routing.route_pattern(rn.HyperXFabric(dims), traffic[0], traffic[1], 1.0))
+    with pytest.raises(ValueError):
+        port_routing.route_pattern(tn.HyperXFabric((4, 4), link_bw=1.0), traffic[0], traffic[1], 1.0, device=CPU)
+    with pytest.raises(TypeError):
         port_routing.route_pattern(rn.HyperXFabric((4, 4)), traffic[0], traffic[1], 1.0, device=CPU)
     for pattern in (rn.bisection_pairing((4, 6)), rn.nearest_neighbor_halo((4, 6))):
         v, w = tn.validate_prediction(dims, pattern, device=CPU), rn.validate_prediction(dims, pattern)
@@ -204,11 +209,18 @@ def test_routing_closed_forms_and_validation_match_jax():
 
 
 def test_hyperx_is_refused_by_the_engines():
+    """The JAX package's HyperX fabric is refused (it is not the port's);
+    the port's own runs the HyperX branches, equal to the JAX package."""
     hx = rn.HyperXFabric((4, 4))
     for call in (lambda: tn.advise_partition(hx, 4, device=CPU), lambda: tn.bisection_table(hx, 4, device=CPU),
                  lambda: tn.MachineState(hx, device=CPU)):
-        with pytest.raises(NotImplementedError, match="HyperX"):
+        with pytest.raises(TypeError):
             call()
+    phx = tn.HyperXFabric((4, 4), link_bw=1.0)
+    assert dataclasses.astuple(tn.advise_partition(phx, 4, device=CPU)) == dataclasses.astuple(rn.advise_partition(hx, 4))
+    assert tn.bisection_table(phx, 4, device=CPU).ranked() == rn.bisection_table(hx, 4).ranked()
+    assert tn.MachineState(phx, device=CPU).allocate(0, (4, 1)).bisection_links == \
+        rn.MachineState(hx).allocate(0, (4, 1)).bisection_links
 
 
 def test_tracer_records_and_exports(tmp_path):

@@ -316,8 +316,11 @@ def test_the_pod_is_required_and_hyperx_raises():
         tp.plan_fleet([TINY["tiny-dense"][1]], chips=4, device=CPU)
     with pytest.raises(TypeError):
         tm.plan_slice(4)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+    with pytest.raises(TypeError, match="HyperXFabric"):  # the JAX package's fabric is not a port pod
         tp.plan_model(TINY["tiny-dense"][1], 4, pod=rn.HyperXFabric((4, 4), link_bw=1.0), device=CPU)
+    got = tp.plan_model(TINY["tiny-dense"][1], 4, pod=tn.HyperXFabric((4, 4), link_bw=1.0), device=CPU)
+    want = jp.plan_model(TINY["tiny-dense"][0], 4, pod=rn.HyperXFabric((4, 4), link_bw=1.0))
+    assert [c.geometry for c in got.table] == [c.geometry for c in want.table]
     with pytest.raises(TypeError):
         tp.plan_model(TINY["tiny-dense"][1], 4, pod=rn.TorusFabric.tpu((4, 2)), device=CPU)
     with pytest.raises(ValueError, match="wrap_mode"):
