@@ -153,10 +153,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    against ``x @ w`` within 1e-5, with no gather or scatter traced; (c) the
    dry-run CLI, each cell in a child process on a fake process group:
    granite-3-8b x train_4k on the (16, 16) mesh and x decode_32k on the
-   (2, 16, 16) mesh, calibrated; each record's state bytes equal the specs'
-   and the local shards built, its peak memory fits the card, and its
-   roofline terms, per-axis collective bytes and times are printed, then
-   a ``distributed`` JSON line.
+   (2, 16, 16) mesh, calibrated; zamba2-2.7b x train_4k on the (16, 16)
+   mesh (the SSD scan on its head shards), rwkv6-3b x long_500k on the
+   (2, 16, 16) mesh (the WKV scan at batch 1) and mixtral-8x7b x train_4k
+   on the (16, 16) mesh (the MoE dispatch on its batch shards), their
+   collectives from the production run; each record's state bytes equal
+   the specs' and the local shards built, its peak memory fits the card,
+   and its roofline terms, per-axis collective bytes, view replications,
+   "model" bytes and times are printed, then a ``distributed`` JSON line.
 10. The rest of the network engines (no kernel of their own), each
    sub-phase on the card and through the port's CPU path, any difference
    failing the run: (a) ``compare_routing`` (DOR against the
@@ -332,7 +336,16 @@ STRASSEN_DEPTHS = (0, 1, 2)
 STRASSEN_ITERS = 3
 F32_FLOPS_PER_S = 67e12  # float32 outside the tensor cores, H100 SXM data sheet
 RING_SHAPE = (4096, 4096, 4096)  # (m, k, n) of the one-rank rings
-DRYRUN_CELLS = [("granite-3-8b", "train_4k", "single"), ("granite-3-8b", "decode_32k", "multi")]
+DRYRUN_CELLS = [("granite-3-8b", "train_4k", "single"), ("granite-3-8b", "decode_32k", "multi"),
+                # the SSD scan on its head shards (80 heads over 16), the WKV scan at
+                # batch 1 on 512 fake ranks, the MoE dispatch on its batch shards
+                ("zamba2-2.7b", "train_4k", "single"), ("rwkv6-3b", "long_500k", "multi"),
+                ("mixtral-8x7b", "train_4k", "single")]
+# Cells run without the collective calibration (their collectives are the
+# production run's, every layer traced), to keep the script inside its
+# time limit; the CLI's --all runs every cell calibrated.
+DRYRUN_UNCALIBRATED = {("zamba2-2.7b", "train_4k", "single"), ("rwkv6-3b", "long_500k", "multi"),
+                       ("mixtral-8x7b", "train_4k", "single")}
 # The collective term's link rate: one 400 Gb/s NDR InfiniBand port per
 # H100, the per-GPU rate between the nodes of a DGX H100 cluster.
 DRYRUN_LINK_BW = 50e9
@@ -2017,21 +2030,23 @@ def phase9b_ring(torch) -> dict:
 
 def phase9c_dryrun(torch, smi: str) -> dict:
     """Phase 9c: the dry-run CLI in a child process per cell (a process
-    holds one fake process group), then each record held to the exact
-    shard bytes of its specs and to the card's memory."""
+    holds one fake process group); the CLI fails a cell whose local shards
+    do not hold its specs' state bytes or whose peak does not fit the
+    card, and each record is held to the specs' bytes again here."""
     from repro_torch.configs import SHAPES, get_arch
     from repro_torch.distributed.sharding import ShardingRules
     from repro_torch.launch.dryrun import RESULTS_DIR, cell_state_bytes
     from repro_torch.launch.mesh import production_mesh_shape
 
     env = {**__import__("os").environ, "PYTHONPATH": str(REPO / "src")}
-    total = torch.cuda.get_device_properties(0).total_memory
     out = []
     for arch_name, shape_name, mesh_kind in DRYRUN_CELLS:
         t0 = time.perf_counter()
+        uncalibrated = (arch_name, shape_name, mesh_kind) in DRYRUN_UNCALIBRATED
         subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch_name,
                         "--shape", shape_name, "--mesh", mesh_kind, "--link-bw", repr(DRYRUN_LINK_BW),
-                        "--force", "--device", "cuda"], check=True, env=env, cwd=REPO)
+                        "--force", "--device", "cuda"] + ["--skip-calibration"] * uncalibrated,
+                       check=True, env=env, cwd=REPO)
         wall = time.perf_counter() - t0
         rec = json.loads((RESULTS_DIR / f"{arch_name}__{shape_name}__{mesh_kind}.json").read_text())
         rules = ShardingRules(get_arch(arch_name), production_mesh_shape(mesh_kind == "multi"))
@@ -2040,10 +2055,8 @@ def phase9c_dryrun(torch, smi: str) -> dict:
         built = rec["memory_analysis"]["shard_bytes_allocated"]
         if not rec["ok"] or rec["bytes_per_device"] != want or built != want:
             raise RuntimeError(f"phase 9c: {arch_name} x {shape_name} x {mesh_kind}: state bytes "
-                               f"{rec['bytes_per_device']}, local shards built {built}, specs {want}")
-        if not peak < total:
-            raise RuntimeError(f"phase 9c: {arch_name} x {shape_name} x {mesh_kind}: peak {peak} B "
-                               f"does not fit the card's {total} B")
+                               f"{rec['bytes_per_device']}, local shards built {built}, specs {want}; "
+                               f"checks {rec['checks']}")
         row = {key: rec[key] for key in ("arch", "shape", "mesh", "chips", "compute_term", "memory_term",
                                          "collective_term", "bottleneck", "collective_bytes",
                                          "per_axis_collectives", "lower_seconds", "compile_seconds",
@@ -2055,7 +2068,8 @@ def phase9c_dryrun(torch, smi: str) -> dict:
               f"{rec['collective_term']:.4e} s at {DRYRUN_LINK_BW:.3e} B/s, bottleneck {rec['bottleneck']}; "
               f"per axis {json.dumps(rec['per_axis_collectives'])}; run {rec['lower_seconds']} s, "
               f"calibration {rec['compile_seconds']} s, child {wall:.1f} s; state {want:.0f} B, "
-              f"peak allocated {peak} B on {smi}", flush=True)
+              f"peak allocated {peak} B on {smi}; view replications {json.dumps(rec['view_replications'])}, "
+              f"\"model\" bytes {rec['per_axis_collectives'].get('model', {}).get('bytes', 0.0):.4e}", flush=True)
     return {"cells": out}
 
 

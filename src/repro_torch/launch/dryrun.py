@@ -22,7 +22,10 @@ For each cell the dry-run:
        - collectives: traced in *calibration* runs at two depths (L0, L1)
          and one or two microbatch counts, and extrapolated with the exact
          bilinear model F(L, m) = a + b*L + c*m + d*L*m (:func:`bilinear`),
-  5. writes a JSON record to ``build/dryrun/``.
+  5. writes a JSON record to ``build/dryrun/``, ``ok`` only when the local
+     shards built hold the specs' state bytes and, on the card, the peak
+     allocated bytes fit its memory (``checks`` lists what failed); the
+     CLI exits non-zero for a cell that is not ``ok``.
 
 The step runs on a two-dimensional mesh of the rules' groups, (the fsdp
 axes flattened, "model"): on the multi-pod mesh ("pod", "data", "model")
@@ -38,6 +41,7 @@ and bytes are not XLA's.
 Usage:
   python -m repro_torch.launch.dryrun --arch granite-3-8b --shape train_4k --mesh single --link-bw 50e9
   python -m repro_torch.launch.dryrun --all --mesh both --link-bw 50e9
+  python -m repro_torch.launch.dryrun --all --mesh both --link-bw 50e9 --force --part 1/3   # a third of it
 """
 
 from __future__ import annotations
@@ -149,16 +153,23 @@ class Zero3Views(TorchDispatchMode):
       mesh dimension, as XLA gathers an FSDP-sharded weight before its use;
       left to itself, DTensor may instead gather the activations and
       contract over the sharded weight dimension (on granite's train cell:
-      the whole batch on every rank).  The gather runs below autograd, so
-      each use gathers anew (remat's recompute too) and the gradient comes
-      back partial, to be reduce-scattered to the parameter's shards.
+      the whole batch on every rank).  A view of a parameter (a layer of a
+      stack, a transpose) is not gathered; the op that uses it is, so no
+      rank gathers a whole stack.  The gather runs below autograd, so each
+      use gathers anew (remat's recompute and the backward pass too) and
+      the gradient comes back partial, to be reduce-scattered to the
+      parameter's shards (``models.transformer.on_layer``, layer by layer).
     * Megatron's activation layout: the other operand of a product with a
       parameter (``mm``, ``addmm``, ``bmm``) is taken with its rows sharded
-      over the fsdp mesh dimension and replicated over the others, as the
-      batch is sharded.  DTensor's cost model, left to itself, contracts
-      over a model-sharded hidden dimension into partial sums or
-      replicates the batch (on granite's train cell: every token of the
-      global batch through the head on each rank).
+      over the fsdp mesh dimension, as the batch is sharded, and over each
+      other mesh dimension with its contraction dimension sharded where
+      the weight's is (a row-parallel product, whose partial sums the
+      forward pass reduces at once, Megatron's all-reduce; left partial,
+      they would be reduced again by every op that reads them) and
+      replicated otherwise.
+      DTensor's cost model, left to itself, may replicate the batch (on
+      granite's train cell: every token of the global batch through the
+      head on each rank) or gather the weight over "model".
     * Views: before a view or reshape, the input is replicated over each
       mesh dimension whose shard the view cannot keep: a shard of a
       dimension the view merges into its left neighbour, or one it splits
@@ -186,12 +197,15 @@ class Zero3Views(TorchDispatchMode):
 
         return isinstance(a, DTensor) and a.to_local().untyped_storage().data_ptr() in self.storages
 
-    def _rows_over_fsdp(self, a):
-        """``a`` with its rows (dimension -2) sharded over the fsdp mesh
-        dimension and replicated over the others."""
+    def _megatron(self, a, w):
+        """``a``, the other operand of a product with the parameter ``w``,
+        with its rows (dimension -2) sharded over the fsdp mesh dimension
+        and, over each other mesh dimension, its contraction dimension
+        sharded where ``w``'s is (a row-parallel product) and replicated
+        otherwise."""
         from torch.distributed.tensor import Replicate, Shard
 
-        want = [Replicate()] * a.device_mesh.ndim
+        want = [Shard(a.dim() - 1) if pl == Shard(w.dim() - 2) else Replicate() for pl in w.placements]
         want[self.fsdp_dim] = Shard(a.dim() - 2)
         return a if tuple(want) == tuple(a.placements) else a.redistribute(a.device_mesh, want)
 
@@ -203,7 +217,10 @@ class Zero3Views(TorchDispatchMode):
         self.gathers += 1
         kept = list(a.placements)
         kept[self.fsdp_dim] = Replicate()
-        return a.redistribute(a.device_mesh, kept)
+        # detached: the gather is below autograd, and a parameter's view
+        # that requires grad, gathered in the backward pass, makes torch
+        # 2.11's autograd.Function call detach_, which DTensor has no rule for
+        return a.detach().redistribute(a.device_mesh, kept)
 
     def _viewable(self, op: str, t, size):
         """``t`` replicated over the mesh dimensions whose shards a view of
@@ -234,15 +251,31 @@ class Zero3Views(TorchDispatchMode):
         kwargs = kwargs or {}
         if not any(issubclass(t, DTensor) for t in types):
             return func(*args, **kwargs)
+        forward_product = False
         if func._opname in self.PRODUCTS:
             i = 1 if func._opname == "addmm" else 0  # addmm(bias, a, w)
             if self._is_param(args[i + 1]) and not self._is_param(args[i]):
-                args = args[:i] + (self._rows_over_fsdp(args[i]),) + args[i + 1:]
-        args = tuple([self._gathered(x) for x in a] if isinstance(a, (list, tuple)) else self._gathered(a)
-                     for a in args)
+                args = args[:i] + (self._megatron(args[i], args[i + 1]),) + args[i + 1:]
+                # the forward pass (remat's recompute included), not the
+                # backward's products with the weight
+                forward_product = torch._C._current_graph_task_id() == -1 or torch.is_grad_enabled()
+        if not func.is_view:  # a view of a parameter (a layer of the stack) is gathered where it is used
+            args = tuple([self._gathered(x) for x in a] if isinstance(a, (list, tuple)) else self._gathered(a)
+                         for a in args)
         if func._opname in self.VIEWS:
             args = (self._viewable(func._opname, args[0], args[1]),) + args[1:]
-        return func(*args, **kwargs)
+        out = func(*args, **kwargs)
+        return self._reduced(out) if forward_product else out
+
+    @staticmethod
+    def _reduced(out):
+        """A forward product's partial sums (a row-parallel product's)
+        reduced at once, Megatron's all-reduce at the end of the layer."""
+        from torch.distributed.tensor import Replicate
+
+        if not any(pl.is_partial() for pl in out.placements):
+            return out
+        return out.redistribute(out.device_mesh, [Replicate() if pl.is_partial() else pl for pl in out.placements])
 
 
 def view_groups(src, dst) -> List[Tuple[List[int], List[int]]]:
@@ -466,12 +499,13 @@ def dryrun_cell(arch: ArchConfig, shape: ShapeConfig, mesh, *, mesh_kind: str, l
     if dev.type == "cuda":
         memory["peak_allocated_bytes"] = torch.cuda.max_memory_allocated(dev) - base_allocated
     prod_stats = prod.trace.stats()
+    prod_per_axis = per_axis_collectives(prod.trace, prod.rmesh, mesh_shape)
 
     # -- 2) collective calibration: depths L0 < L1 ------------------------------
     t0 = time.perf_counter()
     if skip_calibration:
         coll_stats = prod_stats
-        per_axis = per_axis_collectives(prod.trace, prod.rmesh, mesh_shape)
+        per_axis = prod_per_axis
         coll_note = "production-run counts (every layer traced)"
     else:
         # Collective bytes/counts are F(L, m) = a + b*L + c*m + d*L*m
@@ -526,6 +560,7 @@ def dryrun_cell(arch: ArchConfig, shape: ShapeConfig, mesh, *, mesh_kind: str, l
         bytes_per_device=prod.state_bytes,
         notes=f"microbatches={mb}; collectives: {coll_note}",
     )
+    checks = _checks(prod, memory, dev)
     record = report.to_json()
     record.update(
         lower_seconds=round(t_run, 1),
@@ -533,6 +568,7 @@ def dryrun_cell(arch: ArchConfig, shape: ShapeConfig, mesh, *, mesh_kind: str, l
         memory_analysis=memory,
         flop_counter=prod.flops,
         production_collectives=prod_stats,
+        production_per_axis_collectives=prod_per_axis,
         view_replications=prod.view_replications,
         param_gathers=prod.param_gathers,
         per_axis_collectives=per_axis,
@@ -540,9 +576,25 @@ def dryrun_cell(arch: ArchConfig, shape: ShapeConfig, mesh, *, mesh_kind: str, l
         variant=variant,
         device=str(dev),
         card=card_info(),
-        ok=True,
+        torch=torch.__version__,
+        checks=checks,
+        ok=not checks,
     )
     return record
+
+
+def _checks(prod: CellRun, memory: Dict[str, float], dev: torch.device) -> List[str]:
+    """The cell's failed checks: the state bytes of the local shards built
+    equal the specs' (JAX's sharded state), and on the card the peak
+    allocated bytes fit its memory."""
+    failed = []
+    if prod.allocated_bytes != prod.state_bytes:
+        failed.append(f"local shards built hold {prod.allocated_bytes:.0f} B, the specs {prod.state_bytes:.0f} B")
+    if dev.type == "cuda":
+        total = torch.cuda.get_device_properties(dev).total_memory
+        if not memory["peak_allocated_bytes"] < total:
+            failed.append(f"peak allocated {memory['peak_allocated_bytes']} B does not fit the card's {total} B")
+    return failed
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -551,6 +603,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--shape", default=None)
     ap.add_argument("--mesh", default="single", choices=["single", "multi", "both"])
     ap.add_argument("--all", action="store_true")
+    ap.add_argument("--part", default="1/1", metavar="I/N",
+                    help="with --all: every N-th arch x shape pair from the I-th (the matrix in pieces)")
     ap.add_argument("--force", action="store_true")
     ap.add_argument("--skip-calibration", action="store_true")
     ap.add_argument("--link-bw", type=float, required=True,
@@ -563,6 +617,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         # one fake process group per process: each mesh size in a child
         jobs = [(name, shape) for name, arch in sorted(all_archs().items()) for shape in cells(arch)] \
             if args.all else [(args.arch, args.shape)]
+        i, n = (int(x) for x in args.part.split("/"))
+        jobs = jobs[i - 1::n]
         return _fan_out(args, jobs, meshes)
     if not (args.arch and args.shape):
         ap.error("--arch and --shape are required without --all")
@@ -579,18 +635,20 @@ def main(argv: Optional[List[str]] = None) -> int:
         return 1
     peak = rec["memory_analysis"].get("peak_allocated_bytes")
     print(
-        f"[OK] {tag}: flops/dev={rec['hlo_flops']:.3e} "
+        f"[{'OK' if rec['ok'] else 'FAIL'}] {tag}: flops/dev={rec['hlo_flops']:.3e} "
         f"bytes/dev={rec['hlo_bytes']:.3e} coll={rec['collective_bytes']:.3e} "
         f"bottleneck={rec['bottleneck']} state_bytes={rec['bytes_per_device']:.0f} "
-        f"peak_allocated={peak} (run {rec['lower_seconds']}s, calibration {rec['compile_seconds']}s)",
+        f"peak_allocated={peak} (run {rec['lower_seconds']}s, calibration {rec['compile_seconds']}s)"
+        + "".join(f"; {c}" for c in rec["checks"]),
         flush=True,
     )
-    return 0
+    return 0 if rec["ok"] else 1
 
 
 def _fan_out(args, jobs, meshes) -> int:
     """Run each (arch, shape, mesh) cell in a child process of this CLI
-    (a process holds one fake process group), and report the failures."""
+    (a process holds one fake process group), write the child's wall time
+    into its record (``child_seconds``), and report the failures."""
     import sys
 
     failures = []
@@ -601,7 +659,15 @@ def _fan_out(args, jobs, meshes) -> int:
                    "--device", args.device]
             cmd += ["--force"] if args.force else []
             cmd += ["--skip-calibration"] if args.skip_calibration else []
-            if subprocess.run(cmd).returncode != 0:
+            t0, started = time.perf_counter(), time.time()
+            rc = subprocess.run(cmd).returncode
+            wall = round(time.perf_counter() - t0, 1)
+            print(f"[child] {arch_name} x {shape_name} x {m}: exit {rc} after {wall} s", flush=True)
+            path = RESULTS_DIR / f"{arch_name}__{shape_name}__{m}.json"
+            if path.exists() and path.stat().st_mtime >= started:  # this child's record
+                rec = json.loads(path.read_text())
+                path.write_text(json.dumps({**rec, "child_seconds": wall}, indent=1))
+            if rc != 0:
                 failures.append(f"{arch_name} x {shape_name} x {m}")
     if failures:
         print(f"{len(failures)} dry-run cells failed: {failures}", flush=True)

@@ -284,25 +284,49 @@ def attention_decode(
     return out.reshape(B, 1, H, hd).to(q.dtype)
 
 
+def shard_index(t: torch.Tensor, dim: int) -> Tuple[int, int]:
+    """(this rank's shard of DTensor ``t``'s dimension ``dim``, the shards'
+    size): the mesh dimensions that shard it split it in mesh order, the
+    first into the largest pieces, as DTensor lays the shards out."""
+    mesh = t.device_mesh
+    index, n = 0, 1
+    for m, pl in enumerate(t.placements):
+        if pl.is_shard(dim):
+            index = index * mesh.size(m) + mesh.get_local_rank(m)
+            n *= mesh.size(m)
+    return index, t.shape[dim] // n
+
+
 def lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """``table[ids]``.  For DTensors (the dry-run) each rank looks up its
-    shard of the ids in the whole table, so the rows keep the ids'
-    placements (DTensor's own rule for a sharded index gathers the ids);
-    the table's gradient is partial over the mesh dimensions that shard
-    the ids."""
+    """``table[ids]``.  For DTensors (the dry-run) the lookup is Megatron's
+    vocabulary-parallel one, on each rank's shards: the table keeps its
+    vocabulary shards (its other dimension is gathered, ZeRO-3's gather),
+    each rank looks up the ids of its shard of the ids that fall in its
+    slice of the vocabulary (zero rows for the others), and the rows,
+    partial over the mesh dimensions that shard the vocabulary, are reduced
+    over them at once (the residual stream starts whole); the table's
+    gradient is its shards' over those and partial over the mesh
+    dimensions that shard the ids.  No rank holds the whole table."""
     if not hasattr(table, "placements"):
         return table[ids]
-    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
 
     mesh = ids.device_mesh
-    whole = [Replicate()] * mesh.ndim
-    grad = [Partial() if pl.is_shard() else Replicate() for pl in ids.placements]
-    run = local_map(lambda t, i: t[i], out_placements=list(ids.placements),
-                    in_placements=(whole, list(ids.placements)),
-                    in_grad_placements=(grad, list(ids.placements)),
-                    device_mesh=mesh)
-    return run(table.redistribute(mesh, whole), ids)
+    tab = [Shard(0) if pl.is_shard(0) else Replicate() for pl in table.placements]
+    rows = [Replicate() if t.is_shard() else pl for t, pl in zip(tab, ids.placements)]
+    grad = [t if t.is_shard() else Partial() if pl.is_shard() else Replicate() for t, pl in zip(tab, rows)]
+    table = table.redistribute(mesh, tab)
+    index, size = shard_index(table, 0)
+
+    def rows_of_slice(t, i):
+        local = i - index * size
+        hit = (local >= 0) & (local < size)
+        return t[local.clamp(0, size - 1)] * hit[..., None].to(t.dtype)
+
+    run = local_map(rows_of_slice, out_placements=[Partial() if t.is_shard() else pl for t, pl in zip(tab, rows)],
+                    in_placements=(tab, rows), in_grad_placements=(grad, rows), device_mesh=mesh)
+    return run(table, ids.redistribute(mesh, rows)).redistribute(mesh, rows)
 
 
 def attention_on_shards(attend, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -330,6 +354,43 @@ def attention_on_shards(attend, q: torch.Tensor, k: torch.Tensor, v: torch.Tenso
     run = local_map(lambda q_, k_, v_: attend(q_, k_, v_, cfg), out_placements=layout,
                     in_placements=(layout, layout, layout), device_mesh=mesh)
     return run(q, k, v)
+
+
+def scan_on_shards(scan, args, dims, out_dims, H: int):
+    """``scan`` on DTensor ``args``, run on each rank's shards.  A scan (the
+    SSD or the WKV recurrence) is independent across batch rows and heads,
+    so each mesh dimension named "model" shards the heads where it divides
+    ``H`` and every other mesh dimension shards the batch where it divides
+    it (JAX's ``_shard_if`` on the cache specs, which GSPMD keeps through
+    the scan); every other tensor dimension is replicated.  ``dims[i]`` is
+    ``args[i]``'s (batch dimension, head dimension), either None;
+    ``out_dims`` the same for each output.  A ``None`` argument passes
+    through.  An argument replicated over a mesh dimension that splits the
+    work (A, D, u; B and C under head shards) takes its gradient partial
+    there: each rank's share of it comes from its own rows and heads."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    ref, (bdim, _) = next((a, d) for a, d in zip(args, dims) if a is not None and d[0] is not None)
+    mesh = ref.device_mesh
+    splits = [("head" if H % mesh.size(m) == 0 else None) if name == "model"
+              else ("batch" if ref.shape[bdim] % mesh.size(m) == 0 else None)
+              for m, name in enumerate(mesh.mesh_dim_names)]
+
+    def layout(d):
+        return [Shard(d[0]) if s == "batch" and d[0] is not None
+                else Shard(d[1]) if s == "head" and d[1] is not None else Replicate() for s in splits]
+
+    def grad_layout(d):
+        return [pl if pl.is_shard() or s is None else Partial() for pl, s in zip(layout(d), splits)]
+
+    live = [a is not None for a in args]
+    args = tuple(a.redistribute(mesh, layout(d)) if a is not None else None for a, d in zip(args, dims))
+    run = local_map(scan, out_placements=tuple(layout(d) for d in out_dims),
+                    in_placements=tuple(layout(d) if on else None for d, on in zip(dims, live)),
+                    in_grad_placements=tuple(grad_layout(d) if on else None for d, on in zip(dims, live)),
+                    device_mesh=mesh)
+    return run(*args)
 
 
 def attention_output(p: Params, ctx: torch.Tensor) -> torch.Tensor:

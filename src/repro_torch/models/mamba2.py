@@ -28,7 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
-from .layers import dense_init, pad_seq
+from .layers import dense_init, pad_seq, scan_on_shards
 
 Params = Dict[str, torch.Tensor]
 
@@ -80,13 +80,15 @@ def ssd_chunked(
     A: torch.Tensor,  # (H,) negative decay rates
     Bm: torch.Tensor,  # (B, S, G, N)
     Cm: torch.Tensor,  # (B, S, G, N)
-    state0: torch.Tensor,  # (B, H, N, P)
+    state0: Optional[torch.Tensor],  # (B, H, N, P); None: zeros
     chunk: int,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Chunked SSD scan.  Heads are assigned to B/C groups round-robin.
     Returns (y (B, S, H, P), final state (B, H, N, P))."""
     B, S, H, P = xh.shape
     G, N = Bm.shape[2], Bm.shape[3]
+    if state0 is None:
+        state0 = torch.zeros((B, H, N, P), dtype=torch.float32, device=xh.device)
     Q = min(chunk, S)
     S_orig = S
     if S % Q:
@@ -155,6 +157,7 @@ def apply_mamba2(
     d_in, H, P, N = ssm_dims(cfg)
     G = s.n_groups
     use_kernel = impl == "kernel" and state is None
+    ssm0 = None if state is None else state["ssm"]
     if state is None:
         state = init_mamba2_state(cfg, B, x.device)
     proj = x @ p["in_proj"]
@@ -167,11 +170,20 @@ def apply_mamba2(
     xh = xs.reshape(B, S, H, P).float()
     bm = bm.reshape(B, S, G, N).float()
     cm = cm.reshape(B, S, G, N).float()
-    if use_kernel:
-        y, ssm_state = _ssd_kernel(xh, dt, A, bm, cm, s.chunk)
+
+    def scan(xh, dt, A, bm, cm, D, ssm0):
+        if use_kernel:
+            y, ssm_state = _ssd_kernel(xh, dt, A, bm, cm, s.chunk)
+        else:
+            y, ssm_state = ssd_chunked(xh, dt, A, bm, cm, ssm0, s.chunk)
+        return y + xh * D[None, None, :, None], ssm_state
+
+    args = (xh, dt, A, bm, cm, p["D"], ssm0)
+    if hasattr(xh, "placements"):  # DTensors (the dry-run): on each rank's batch and head shards
+        dims = ((0, 2), (0, 2), (None, 0), (0, None), (0, None), (None, 0), (0, 1))
+        y, ssm_state = scan_on_shards(scan, args, dims, out_dims=((0, 2), (0, 1)), H=H)
     else:
-        y, ssm_state = ssd_chunked(xh, dt, A, bm, cm, state["ssm"], s.chunk)
-    y = y + xh * p["D"][None, None, :, None]
+        y, ssm_state = scan(*args)
     y = y.reshape(B, S, d_in)
     # gated RMSNorm (Mamba2)
     y = y * F.silu(z.float())

@@ -25,6 +25,7 @@ import torch.utils.checkpoint
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike, resolve_device
 from . import rwkv_lm, transformer, zamba
+from .layers import shard_index
 
 PyTree = Any
 
@@ -40,16 +41,59 @@ def _family_module(cfg: ArchConfig):
 def _token_ce(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     """Next-token CE per position, in f32.  logits: (..., V), targets: (...) int."""
     logits = logits.float()
+    if hasattr(logits, "placements"):  # a DTensor (the dry-run)
+        return _token_ce_on_shards(logits, targets)
     m = logits.amax(dim=-1, keepdim=True).detach()
     logz = torch.log(torch.exp(logits - m).sum(dim=-1)) + m[..., 0]
-    if hasattr(logits, "placements"):
-        # a DTensor (the dry-run): the gold logit as a sum over the vocab, as
-        # JAX's one-hot; DTensor's gather along a sharded vocab is unsound
-        hit = torch.arange(logits.shape[-1], device=logits.device) == targets[..., None]
-        gold = (logits * hit).sum(dim=-1)
-    else:
-        gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
     return logz - gold
+
+
+def _token_ce_on_shards(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """:func:`_token_ce` of DTensor logits, Megatron's vocabulary-parallel
+    CE: every (..., V) quantity stays on each rank's shards, and only the
+    per-position max, sum of exponentials and gold logit (the gold as
+    JAX's one-hot sum over the rank's slice of the vocabulary; DTensor's
+    gather along a sharded vocabulary is unsound) are reduced over the mesh
+    dimensions that shard the vocabulary.  Left to DTensor's own rules, the
+    card's torch made a (batch, sequence, vocabulary) float32 tensor whole
+    on each rank in the CE's backward (67 GB on command-r-35b's train cell
+    at one microbatch)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = logits.device_mesh
+    vdim = logits.dim() - 1
+    lay = [pl if isinstance(pl, Shard) else Replicate() for pl in logits.placements]
+    rows = [Replicate() if pl.is_shard(vdim) else pl for pl in lay]
+    partial = lambda op: [Partial(op) if pl.is_shard(vdim) else r for pl, r in zip(lay, rows)]
+    logits = logits.redistribute(mesh, lay)
+    index, size = shard_index(logits, vdim)
+
+    m = local_map(lambda l: l.amax(dim=-1), out_placements=partial("max"), in_placements=(lay,),
+                  device_mesh=mesh)(logits.detach()).redistribute(mesh, rows)
+
+    def parts(l, t, m_):
+        ids = torch.arange(index * size, (index + 1) * size, device=l.device)
+        return torch.exp(l - m_[..., None]).sum(dim=-1), (l * (ids == t[..., None])).sum(dim=-1)
+
+    sumexp, gold = local_map(parts, out_placements=(partial("sum"), partial("sum")),
+                             in_placements=(lay, rows, rows), device_mesh=mesh)(
+        logits, targets.redistribute(mesh, rows), m)
+    return torch.log(sumexp.redistribute(mesh, rows)) + m - gold.redistribute(mesh, rows)
+
+
+def _positions(logits: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+    """``logits[:, lo:hi]``.  DTensor logits (the dry-run) whose sequence is
+    not sharded are sliced on each rank's shards, so the slice's backward
+    is local too and never meets DTensor's rule for ``slice_backward``."""
+    if not hasattr(logits, "placements") or any(pl.is_shard(1) for pl in logits.placements):
+        return logits[:, lo:hi]
+    from torch.distributed.tensor.experimental import local_map
+
+    pl = list(logits.placements)  # a list: local_map reads a tuple as one placement list per output
+    return local_map(lambda t: t[:, lo:hi], out_placements=pl, in_placements=(pl,),
+                     device_mesh=logits.device_mesh)(logits)
 
 
 def cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
@@ -119,7 +163,7 @@ class Model:
         logits, aux = self.forward(params, batch)
         logits = self._constrain(logits)
         (lo, hi), targets = self._targets_and_hidden_slice(batch, logits.shape[1])
-        ce = cross_entropy(logits[:, lo:hi], targets)
+        ce = cross_entropy(_positions(logits, lo, hi), targets)
         return self._with_aux(ce, aux)
 
     def _chunked_loss(self, params: PyTree, batch: Dict[str, torch.Tensor]):

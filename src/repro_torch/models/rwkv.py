@@ -28,8 +28,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
-from .layers import apply_norm, dense_init, init_norm, pad_seq
-from .transformer import _torch_dtype
+from .layers import apply_norm, dense_init, init_norm, pad_seq, scan_on_shards
+from .transformer import _torch_dtype, residual
 
 Params = Dict[str, torch.Tensor]
 
@@ -73,10 +73,12 @@ def _chunked_wkv(r, k, v, logw, u, state0, chunk: int) -> Tuple[torch.Tensor, to
     """Chunked RWKV6 sequence mix.
 
     r, k, v: (B, S, H, P); logw: (B, S, H, P) (log decay, <= 0);
-    u: (H, P); state0: (B, H, P, P) mapping key-dim -> value-dim.
-    Returns (out (B, S, H, P), final state).
+    u: (H, P); state0: (B, H, P, P) mapping key-dim -> value-dim, or None
+    for zeros.  Returns (out (B, S, H, P), final state).
     """
     B, S, H, P = r.shape
+    if state0 is None:
+        state0 = torch.zeros((B, H, P, P), dtype=torch.float32, device=r.device)
     Q = min(chunk, S)
     S_orig = S
     if S % Q:
@@ -158,9 +160,12 @@ def apply_time_mix(
     u = p["u"].reshape(H, P)
     if use_kernel:
         out, state = _wkv_kernel(r, k, v, logw, u, chunk)
+    elif hasattr(r, "placements"):  # DTensors (the dry-run): on each rank's batch and head shards
+        out, state = scan_on_shards(
+            lambda *t: _chunked_wkv(*t, chunk), (r.float(), k.float(), v.float(), logw, u, state0),
+            dims=((0, 2),) * 4 + ((None, 0), (0, 1)), out_dims=((0, 2), (0, 1)), H=H,
+        )
     else:
-        if state0 is None:
-            state0 = torch.zeros((B, H, P, P), dtype=torch.float32, device=x.device)
         out, state = _chunked_wkv(r.float(), k.float(), v.float(), logw, u, state0, chunk)
     # per-head group norm
     mean = out.mean(-1, keepdim=True)
@@ -207,7 +212,7 @@ def apply_rwkv_block(
     out, wkv, shift_t = apply_time_mix(
         p["time_mix"], h, cfg, state["shift_t"], None if fresh else state["wkv"], chunk, impl
     )
-    x = x + out
+    x = residual(x + out)
     h = apply_norm(p["norm2"], x, cfg)
     out, shift_c = apply_channel_mix(p["channel_mix"], h, state["shift_c"])
     x = x + out

@@ -20,7 +20,9 @@ from .transformer import (
     embed_inputs,
     layer_params,
     logits_from_hidden,
+    on_layer,
     remat_body,
+    residual,
     unstack,
 )
 
@@ -61,8 +63,8 @@ def forward(
     x = apply_norm(p["embed_norm"], embed_inputs(p, cfg, batch), cfg)
     body = remat_body(_layer, remat)
     for layer_p in unstack(p["layers"]):
-        x = body(layer_p, x, cfg, impl)
-    x = apply_norm(p["final_norm"], x, cfg)
+        x = body(*on_layer(layer_p, x), cfg, impl)
+    x = apply_norm(p["final_norm"], residual(x), cfg)
     if return_hidden:
         return x, {}
     return logits_from_hidden(p, cfg, x), {}

@@ -29,6 +29,7 @@ from typing import Any, Callable, Dict, List, Tuple
 import torch
 import torch.utils.checkpoint
 
+from repro_torch import tree
 from repro_torch.configs.base import ArchConfig
 from . import moe as moe_lib
 from .layers import (
@@ -68,6 +69,54 @@ def unstack(layers: PyTree, lead: int = 1) -> List[PyTree]:
         n = len(next(iter(per_key.values())))
         return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
     return list(layers.flatten(0, lead - 1).unbind(0))
+
+
+def on_layer(layer_p: PyTree, x: torch.Tensor) -> Tuple[PyTree, torch.Tensor]:
+    """One layer's parameters and input as the layer takes them.  For
+    DTensors (the dry-run) while autograd records, each is passed through
+    an identity whose backward lays out its gradient as soon as the
+    layer's backward has made it: a parameter's reduced to the parameter's
+    shards (ZeRO-3's reduce-scatter, layer by layer: no rank holds the
+    partial gradient of the whole stack), the input's as
+    :func:`residual` lays it out."""
+    if not (hasattr(x, "placements") and torch.is_grad_enabled()):
+        return layer_p, x
+    return tree.tree_map(lambda t: _grad_as(t, t.placements), layer_p), residual(x)
+
+
+def residual(x: torch.Tensor) -> torch.Tensor:
+    """The residual stream ``x``; for a DTensor (the dry-run) while autograd
+    records, its gradient batch-sharded and replicated over "model", as
+    GSPMD keeps the residual stream.  Left to itself, DTensor
+    reduce-scatters the final norm's gradient over the sequence, and every
+    weight gradient below it is then computed whole on each rank (62 GB on
+    nemotron-4-340b's train cell)."""
+    if not (hasattr(x, "placements") and torch.is_grad_enabled()):
+        return x
+    from torch.distributed.tensor import Replicate
+
+    return _grad_as(x, [Replicate() if pl.is_partial() else pl for pl in x.placements])
+
+
+def _grad_as(t: torch.Tensor, placements) -> torch.Tensor:
+    return _GradAs.apply(t, tuple(placements)) if t.requires_grad else t
+
+
+class _GradAs(torch.autograd.Function):
+    """The identity on a DTensor whose backward redistributes the gradient
+    to ``placements``.  The node is made where the layer starts, so the
+    engine runs it right after the layer's backward (a hook on a tensor
+    made earlier, as ``unstack``'s views are, would run only once every
+    layer's gradient is in)."""
+
+    @staticmethod
+    def forward(ctx, t, placements):
+        ctx.placements = placements
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.redistribute(g.device_mesh, ctx.placements), None
 
 
 def _save_dots(ctx, op, *args, **kwargs):
@@ -144,7 +193,7 @@ def apply_block(
         mlp_out, aux = _ffn(p, h, cfg)
         return x + attn_out + mlp_out, aux
     h = apply_norm(p["norm_attn"], x, cfg)
-    x = x + run_attention(p["attn"], h, cfg, positions, impl)
+    x = residual(x + run_attention(p["attn"], h, cfg, positions, impl))
     h = apply_norm(p["norm_mlp"], x, cfg)
     mlp_out, aux = _ffn(p, h, cfg)
     return x + mlp_out, aux
@@ -230,9 +279,9 @@ def forward(
     body = remat_body(apply_block, remat)
     per_layer: List[Dict[str, torch.Tensor]] = []
     for layer_p in unstack(p["layers"]):
-        x, aux = body(layer_p, x, cfg, positions, impl)
+        x, aux = body(*on_layer(layer_p, x), cfg, positions, impl)
         per_layer.append(aux)
-    x = apply_norm(p["final_norm"], x, cfg)
+    x = apply_norm(p["final_norm"], residual(x), cfg)
     aux_mean = {k: torch.stack([a[k] for a in per_layer]).mean() for k in per_layer[0]}
     if return_hidden:
         return x, aux_mean

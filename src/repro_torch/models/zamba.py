@@ -32,7 +32,9 @@ from .transformer import (
     init_block,
     layer_params,
     logits_from_hidden,
+    on_layer,
     remat_body,
+    residual,
     unstack,
 )
 
@@ -88,9 +90,9 @@ def forward(
     L = cfg.shared_attn_every
     for g in range(n_groups(cfg)):
         for layer_p in layers[g * L : (g + 1) * L]:
-            x = body(layer_p, x, cfg, impl)
+            x = body(*on_layer(layer_p, x), cfg, impl)
         x, _ = apply_block(p["shared_attn"], x, cfg, positions, impl)
-    x = apply_norm(p["final_norm"], x, cfg)
+    x = apply_norm(p["final_norm"], residual(x), cfg)
     if return_hidden:
         return x, {}
     return logits_from_hidden(p, cfg, x), {}

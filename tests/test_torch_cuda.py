@@ -765,3 +765,45 @@ def test_collective_matmul_rings_on_a_one_rank_nccl_group(cuda):
     finally:
         dist.destroy_process_group()
     assert not dist.is_initialized()
+
+
+DRYRUN_CARD_PROG = """
+import json, sys
+import torch.distributed as dist
+from torch.testing._internal.distributed.fake_pg import FakeStore
+from torch.distributed.device_mesh import init_device_mesh
+from repro_torch.configs import get_arch
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.launch import dryrun
+
+dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=8)
+mesh = init_device_mesh("cuda", (2, 4), mesh_dim_names=("data", "model"))
+for name in sys.argv[1].split(","):
+    rec = dryrun.dryrun_cell(get_arch(name).reduced(), ShapeConfig("train", 16, 4, "train"), mesh,
+                             mesh_kind="reduced", link_bw=50e9, device="cuda", microbatches=2,
+                             skip_calibration=True)
+    print(json.dumps({"arch": name, "ok": rec["ok"], "replications": rec["view_replications"]}), flush=True)
+"""
+
+
+def test_dryrun_reduced_train_cells_on_the_card(cuda, tmp_path):
+    """Reduced train cells through the dry-run on a fake (2, 4) group on the
+    card: the card's torch refused what the CPU's ran (DTensor has no rule
+    for the ``detach_`` that its autograd.Function applies to a parameter
+    view gathered in the backward pass; the gather now takes it detached),
+    the scans and the MoE dispatch on their shards."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    archs = ["granite-3-8b", "zamba2-2.7b", "rwkv6-3b", "mixtral-8x7b"]
+    script = tmp_path / "dryrun_card.py"
+    script.write_text(DRYRUN_CARD_PROG)
+    src = Path(__file__).resolve().parents[1] / "src"
+    out = subprocess.run([sys.executable, str(script), ",".join(archs)], capture_output=True, text=True,
+                         timeout=600, env={**os.environ, "PYTHONPATH": str(src)})
+    assert out.returncode == 0, out.stderr[-4000:]
+    rows = [json.loads(line) for line in out.stdout.splitlines() if line.startswith("{")]
+    assert [r["arch"] for r in rows] == archs and all(r["ok"] for r in rows)

@@ -252,3 +252,31 @@ def test_view_keeps_shard_decides_from_shapes_and_placements(shape, size, dim, n
 
     pls = (Replicate(), Shard(dim))
     assert dryrun.view_keeps_shard(shape, size, pls, [2, n], 1) is keeps
+
+
+def test_a_cell_whose_state_or_peak_fails_its_check_is_not_ok():
+    """``dryrun_cell``'s checks: the local shards built hold the specs'
+    state bytes (else the record is not ``ok`` and the CLI exits non-zero);
+    the peak is checked against the card's memory only on the card."""
+    from types import SimpleNamespace
+
+    cpu = torch.device("cpu")
+    good = SimpleNamespace(state_bytes=1024.0, allocated_bytes=1024.0)
+    assert dryrun._checks(good, {"state_bytes": 1024.0}, cpu) == []
+    bad = dryrun._checks(SimpleNamespace(state_bytes=1024.0, allocated_bytes=2048.0), {}, cpu)
+    assert len(bad) == 1 and "2048" in bad[0] and "1024" in bad[0]
+
+
+def test_cli_all_runs_its_part_of_the_matrix(monkeypatch):
+    """``--all --part i/n`` runs every n-th arch x shape pair from the
+    i-th: the parts cover the 36 pairs of the matrix once each."""
+    from repro_torch.configs import all_archs, cells
+
+    want = [(n, s) for n, a in sorted(all_archs().items()) for s in cells(a)]
+    seen = []
+    monkeypatch.setattr(dryrun, "_fan_out", lambda args, jobs, meshes: seen.append((jobs, meshes)) or 0)
+    for i in (1, 2, 3):
+        assert dryrun.main(["--all", "--mesh", "both", "--link-bw", "50e9", "--part", f"{i}/3"]) == 0
+    assert len(want) == 36
+    assert [j for jobs, _ in seen for j in jobs] == want[0::3] + want[1::3] + want[2::3]
+    assert all(meshes == ["single", "multi"] for _, meshes in seen)
