@@ -157,8 +157,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    mesh (the SSD scan on its head shards), rwkv6-3b x long_500k on the
    (2, 16, 16) mesh (the WKV scan at batch 1) and mixtral-8x7b x train_4k
    on the (16, 16) mesh (the MoE dispatch on its batch shards), their
-   collectives from the production run; each record's state bytes equal
-   the specs' and the local shards built, its peak memory fits the card,
+   collectives from the production run, and llama3-70b x train_4k on the
+   (16, 16) mesh, calibrated (one microbatch of 16 rows a rank: block
+   remat keeps each layer's input as its 1/16 sequence slice over
+   "model", without which it runs out of memory); each record's state bytes equal
+   the specs' and the local shards built, its peak memory fits the card
+   (the cells run in two lanes of child processes, ``DRYRUN_LANES``),
    and its roofline terms, per-axis collective bytes, view replications,
    "model" bytes and times are printed, then a ``distributed`` JSON line.
 10. The rest of the network engines (no kernel of their own), each
@@ -181,8 +185,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    of it under torch.profiler, the device's idle share; every new pass
    must have been dispatched on the card; an ``engines`` JSON line holds
    the numbers.
+11. The port's eight examples (``repro_torch.examples``), each through its
+   ``main`` at its defaults on the card (``partition_analysis`` at
+   ``EXAMPLE_REPLAY_JOBS`` jobs, a quarter of the JAX example's 400, to keep
+   the script inside its time limit), in a thread while phase 9c's cells
+   run in their child processes: every assert of each must hold; each
+   example's wall time is printed, then an ``examples`` JSON line.
 
-The line before the last is a JSON object with each kernel's launches on the
+Each phase prints its wall time.  The line before the last is a JSON object with each kernel's launches on the
 main path, error, times and bound; the last line names the device.  With no
 CUDA card, or run outside a checkout of the repository, it prints no result
 and exits non-zero.
@@ -197,6 +207,7 @@ import re
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
@@ -340,7 +351,16 @@ DRYRUN_CELLS = [("granite-3-8b", "train_4k", "single"), ("granite-3-8b", "decode
                 # the SSD scan on its head shards (80 heads over 16), the WKV scan at
                 # batch 1 on 512 fake ranks, the MoE dispatch on its batch shards
                 ("zamba2-2.7b", "train_4k", "single"), ("rwkv6-3b", "long_500k", "multi"),
-                ("mixtral-8x7b", "train_4k", "single")]
+                ("mixtral-8x7b", "train_4k", "single"),
+                # one microbatch of 16 rows a rank: the layer inputs kept as
+                # their slices over "model" (whole, 86 GB a rank)
+                ("llama3-70b", "train_4k", "single")]
+# The cells run in two lanes of child processes at once, each lane's in
+# order; their peak allocated bytes on an H100 (GB) keep any two that
+# overlap on the card below its 80 GB: zamba2 46.2 then llama3-70b 38.6 in
+# one lane, granite train 8.9, granite decode 2.0, rwkv6 0.1, mixtral 24.8
+# in the other.
+DRYRUN_LANES = [[2, 5], [0, 1, 3, 4]]
 # Cells run without the collective calibration (their collectives are the
 # production run's, every layer traced), to keep the script inside its
 # time limit; the CLI's --all runs every cell calibrated.
@@ -2039,8 +2059,10 @@ def phase9c_dryrun(torch, smi: str) -> dict:
     from repro_torch.launch.mesh import production_mesh_shape
 
     env = {**__import__("os").environ, "PYTHONPATH": str(REPO / "src")}
-    out = []
-    for arch_name, shape_name, mesh_kind in DRYRUN_CELLS:
+    torch.cuda.empty_cache()  # the card's memory to the children
+
+    def run(cell):
+        arch_name, shape_name, mesh_kind = cell
         t0 = time.perf_counter()
         uncalibrated = (arch_name, shape_name, mesh_kind) in DRYRUN_UNCALIBRATED
         subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch_name,
@@ -2062,7 +2084,6 @@ def phase9c_dryrun(torch, smi: str) -> dict:
                                          "per_axis_collectives", "lower_seconds", "compile_seconds",
                                          "memory_analysis", "view_replications", "link_bw")}
         row["wall_s"] = wall
-        out.append(row)
         print(f"phase 9c: {arch_name} x {shape_name} x {mesh_kind} ({rec['chips']} fake ranks): "
               f"compute {rec['compute_term']:.4e} s, memory {rec['memory_term']:.4e} s, collective "
               f"{rec['collective_term']:.4e} s at {DRYRUN_LINK_BW:.3e} B/s, bottleneck {rec['bottleneck']}; "
@@ -2070,7 +2091,15 @@ def phase9c_dryrun(torch, smi: str) -> dict:
               f"calibration {rec['compile_seconds']} s, child {wall:.1f} s; state {want:.0f} B, "
               f"peak allocated {peak} B on {smi}; view replications {json.dumps(rec['view_replications'])}, "
               f"\"model\" bytes {rec['per_axis_collectives'].get('model', {}).get('bytes', 0.0):.4e}", flush=True)
-    return {"cells": out}
+        return row
+
+    rows = {}
+    with ThreadPoolExecutor(max_workers=len(DRYRUN_LANES)) as pool:
+        for lane, done in zip(DRYRUN_LANES, pool.map(lambda lane: [run(DRYRUN_CELLS[i]) for i in lane],
+                                                     DRYRUN_LANES)):
+            rows.update(zip(lane, done))
+    assert sorted(rows) == list(range(len(DRYRUN_CELLS)))
+    return {"cells": [rows[i] for i in range(len(DRYRUN_CELLS))]}
 
 
 def phase9_distributed(torch, smi: str) -> dict:
@@ -2356,6 +2385,37 @@ def phase10_engines(smi: str, card: str = "cuda", scenario_runs=None) -> dict:
     return out
 
 
+# The port's examples, run by phase 11 in this order, and partition
+# analysis's replay size: 100 jobs, where the JAX example's default is 400,
+# since at 400 (65.6 s alone, 138.6 s beside phase 9c) the whole script took
+# 1176.8 s of its 1200 on an H100.
+EXAMPLES = ["quickstart", "serve_batched", "fault_tolerant_training", "streaming_scheduler",
+            "telemetry_dashboard", "hyperx_analysis", "fleet_planner", "partition_analysis"]
+EXAMPLE_REPLAY_JOBS = 100
+
+
+def phase11_examples() -> dict:
+    """Each of the port's examples through its ``main`` on the card, its
+    asserts holding; the wall seconds of each."""
+    import importlib
+    import tempfile
+
+    import torch
+
+    seconds, t_phase = {}, time.perf_counter()
+    with tempfile.TemporaryDirectory() as out_dir:
+        for name in EXAMPLES:
+            argv = {"telemetry_dashboard": ["--out-dir", out_dir],
+                    "partition_analysis": ["--jobs", str(EXAMPLE_REPLAY_JOBS)]}.get(name, [])
+            t0 = time.perf_counter()
+            importlib.import_module(f"repro_torch.examples.{name}").main(argv)
+            torch.cuda.synchronize()
+            seconds[name] = round(time.perf_counter() - t0, 3)
+            print(f"  [example] {name}: {seconds[name]} s", flush=True)
+    return {"seconds": seconds, "wall_s": round(time.perf_counter() - t_phase, 3),
+            "replay_jobs": EXAMPLE_REPLAY_JOBS}
+
+
 def main() -> int:
     import torch
 
@@ -2435,11 +2495,21 @@ def main() -> int:
     print(f"phase 8: wall {time.perf_counter() - t_phase:.1f} s", flush=True)
     print(json.dumps({"planner": planner, "card": smi}))
 
-    # -- phase 9: the dry-run and the distributed layer ----------------------------
+    # -- phase 9: the dry-run and the distributed layer, phase 11 beside 9c --------
+    # Phase 9c's cells run in child processes and keep the host busy, not
+    # the card: the examples (phase 11) run in a thread of this process
+    # meanwhile, and are joined before phase 10 profiles the card.
     t_phase = time.perf_counter()
-    distributed = phase9_distributed(torch, smi)
-    print(f"phase 9: wall {time.perf_counter() - t_phase:.1f} s", flush=True)
+    distributed = {"strassen": phase9a_strassen(torch, smi), "ring": phase9b_ring(torch)}
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        examples_run = pool.submit(phase11_examples)
+        distributed["dryrun"] = phase9c_dryrun(torch, smi)
+        print(f"phase 9: wall {time.perf_counter() - t_phase:.1f} s", flush=True)
+        examples = examples_run.result()
+    print(f"phase 11: wall {examples['wall_s']:.1f} s, beside phase 9c; phases 9 and 11 together "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
     print(json.dumps({"distributed": distributed, "card": smi}))
+    print(json.dumps({"examples": examples, "card": smi}))
 
     # -- phase 10: the rest of the network engines --------------------------------
     t_phase = time.perf_counter()

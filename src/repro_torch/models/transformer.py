@@ -136,20 +136,77 @@ def _save_dots(ctx, op, *args, **kwargs):
 
 
 def remat_body(body: Callable, remat: str) -> Callable:
-    """``body`` under a remat policy, while autograd records: ``"block"``
-    wraps it in non-reentrant ``torch.utils.checkpoint`` (its activations
-    are recomputed in the backward pass), ``"dots"`` checkpoints it
-    selectively, saving the weight products' outputs (:func:`_save_dots`),
-    and ``"none"`` keeps every activation."""
+    """``body(layer_p, x, *rest)`` under a remat policy, while autograd
+    records: ``"block"`` wraps it in non-reentrant
+    ``torch.utils.checkpoint`` (its activations are recomputed in the
+    backward pass; an input replicated over a "model" mesh dimension, the
+    dry-run's residual stream, is kept as :class:`_SequenceSlice` keeps
+    it), ``"dots"`` checkpoints it selectively, saving the weight
+    products' outputs (:func:`_save_dots`), and ``"none"`` keeps every
+    activation."""
     if remat not in ("block", "dots", "none"):
         raise ValueError(f"unknown remat policy {remat!r} (block | dots | none)")
     if remat == "none" or not torch.is_grad_enabled():
         return body
-    context_fn = torch.utils.checkpoint.noop_context_fn
     if remat == "dots":
         context_fn = functools.partial(torch.utils.checkpoint.create_selective_checkpoint_contexts, _save_dots)
-    return lambda *args: torch.utils.checkpoint.checkpoint(
-        body, *args, use_reentrant=False, context_fn=context_fn)
+        return lambda *args: torch.utils.checkpoint.checkpoint(
+            body, *args, use_reentrant=False, context_fn=context_fn)
+
+    def block(layer_p, x, *rest):
+        if _model_dim(x) is None:
+            return torch.utils.checkpoint.checkpoint(body, layer_p, x, *rest, use_reentrant=False)
+        held = _SequenceSlice(x)
+        out = torch.utils.checkpoint.checkpoint(
+            lambda p, h, *r: body(p, h.get(), *r), layer_p, held, *rest, use_reentrant=False)
+        held.cut()
+        return out
+
+    return block
+
+
+def _model_dim(x: torch.Tensor):
+    """The mesh dimension named "model" over which the DTensor ``x`` is
+    replicated, when it has more than one rank; else None."""
+    names = getattr(getattr(x, "device_mesh", None), "mesh_dim_names", None) or ()
+    if "model" not in names:
+        return None
+    m = names.index("model")
+    return m if x.device_mesh.size(m) > 1 and x.placements[m].is_replicate() else None
+
+
+class _SequenceSlice:
+    """A layer's input replicated over "model", as block remat keeps it:
+    whole while the layer's forward pass runs, then (:meth:`cut`) only this
+    rank's slice of its sequence over "model", cut from the replica with no
+    collective.  When the backward pass recomputes the layer, :meth:`get`
+    all-gathers the slice over "model".  Every rank of a "model" group
+    holds the same input, so the group keeps it once among its ranks
+    instead of once on each (the whole inputs of llama3-70b's 80 layers
+    are 86 GB a rank in its single-pod train cell).  The recompute reads
+    the input through this object, not as an argument of the checkpoint,
+    which would hold it whole until the backward pass."""
+
+    def __init__(self, x: torch.Tensor):
+        self.x, self.piece = x, None
+
+    def get(self) -> torch.Tensor:
+        if self.x is not None:
+            return self.x
+        x = self.piece.redistribute(self.piece.device_mesh, self.placements)
+        return x.requires_grad_(self.requires_grad)  # the recompute saves what the forward pass saved
+
+    def cut(self) -> None:
+        from torch.distributed.tensor import DTensor, Shard
+
+        x, self.x = self.x, None
+        self.placements, self.requires_grad = x.placements, x.requires_grad
+        cut = list(x.placements)
+        cut[_model_dim(x)] = Shard(1)
+        with torch.no_grad():
+            local = x.detach().redistribute(x.device_mesh, cut).to_local().clone()
+        self.piece = DTensor.from_local(local, x.device_mesh, cut, run_check=False,
+                                        shape=x.shape, stride=x.stride())
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
 """Canonical torus/cuboid geometry (the port's copy of
-``repro.network.geometry``, less ``ExplicitTorus``, a brute-force test
+``repro.network.geometry``, with ``ExplicitTorus``, its brute-force
 oracle), plus ``repro.network.isoperimetry._divisors``.
 
 Conventions:
@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import itertools
 import math
+from dataclasses import dataclass, field
 from typing import Iterable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -228,3 +229,71 @@ def _divisors(t: int, cap: Optional[int] = None) -> np.ndarray:
     hi = t if cap is None else min(t, cap)
     d = np.arange(1, hi + 1, dtype=np.int64)
     return d[t % d == 0]
+
+
+# ---------------------------------------------------------------------------
+# Brute-force validation torus.
+# ---------------------------------------------------------------------------
+@dataclass
+class ExplicitTorus:
+    """Small explicit torus used for brute-force validation in tests.
+
+    Unlike the closed-form functions above, this builds vertex/edge sets
+    explicitly, so that cut counting for *arbitrary* (non-cuboid) subsets can
+    be cross-checked.  Multi-edges for length-2 dimensions are honoured.
+    """
+
+    dims: Tuple[int, ...]
+    _edges: list = field(default_factory=list)
+
+    def __post_init__(self):
+        self.dims = tuple(int(d) for d in self.dims)
+        edges = []
+        for v in enumerate_vertices(self.dims):
+            for k, a in enumerate(self.dims):
+                if a == 1:
+                    continue
+                w = list(v)
+                w[k] = (v[k] + 1) % a
+                w = tuple(w)
+                edges.append((v, w))
+                if a == 2 and v[k] == 0:
+                    edges.append((v, w))  # double link
+        # every undirected edge appended once per +1 step; for a>2 this counts
+        # each ring edge exactly once, for a==2 the pair (0,1) gets two edges.
+        if any(a == 2 for a in self.dims):
+            # For a==2 dims: v[k]=0 appends (0->1) twice, v[k]=1 appends (1->0)
+            # once == duplicate of (0,1). Filter: keep edges from v[k]<w[k] side.
+            filt = []
+            for (v, w) in edges:
+                ks = [k for k in range(len(self.dims)) if v[k] != w[k]]
+                k = ks[0]
+                if self.dims[k] == 2 and v[k] != 0:
+                    continue
+                filt.append((v, w))
+            edges = filt
+        self._edges = edges
+
+    @property
+    def num_vertices(self) -> int:
+        return volume(self.dims)
+
+    @property
+    def num_edges(self) -> int:
+        return len(self._edges)
+
+    def cut(self, subset: Iterable[Tuple[int, ...]]) -> int:
+        s = set(subset)
+        return sum(1 for (v, w) in self._edges if (v in s) != (w in s))
+
+    def interior(self, subset: Iterable[Tuple[int, ...]]) -> int:
+        s = set(subset)
+        return sum(1 for (v, w) in self._edges if v in s and w in s)
+
+    def cuboid_vertices(self, cuboid: Sequence[int]) -> List[Tuple[int, ...]]:
+        c = tuple(cuboid) + (1,) * (len(self.dims) - len(tuple(cuboid)))
+        # place cuboid at origin, side i along dim i (caller aligns sides)
+        for side, a in zip(c, self.dims):
+            if side > a:
+                raise ValueError(f"{c} does not fit in {self.dims} as aligned")
+        return list(itertools.product(*(range(s) for s in c)))

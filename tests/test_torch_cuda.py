@@ -807,3 +807,28 @@ def test_dryrun_reduced_train_cells_on_the_card(cuda, tmp_path):
     assert out.returncode == 0, out.stderr[-4000:]
     rows = [json.loads(line) for line in out.stdout.splitlines() if line.startswith("{")]
     assert [r["arch"] for r in rows] == archs and all(r["ok"] for r in rows)
+
+
+def test_dryrun_llama3_70b_train_single_fits_the_card(cuda):
+    """llama3-70b x train_4k x single's production run, which JAX's
+    microbatch table leaves at one microbatch of 16 rows a rank: block remat
+    keeps each of the 80 layers' inputs as its 1/16 sequence slice over
+    "model" (86 GB a rank whole, which ran out of the card's memory), so
+    the CLI's checks pass and the peak is below the card's memory."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from repro_torch.launch import dryrun
+
+    src = Path(__file__).resolve().parents[1] / "src"
+    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "llama3-70b",
+                          "--shape", "train_4k", "--mesh", "single", "--link-bw", "50e9", "--force",
+                          "--skip-calibration"], capture_output=True, text=True, timeout=600,
+                         env={**os.environ, "PYTHONPATH": str(src)})
+    assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-4000:]
+    rec = json.loads((dryrun.RESULTS_DIR / "llama3-70b__train_4k__single.json").read_text())
+    assert rec["ok"] and rec["checks"] == []
+    assert rec["memory_analysis"]["peak_allocated_bytes"] < torch.cuda.get_device_properties(0).total_memory

@@ -52,6 +52,7 @@ STEP_PROG = textwrap.dedent(
         from repro_torch.configs import get_arch
         from repro_torch.distributed.sharding import ShardingRules, mesh_axis_sizes, named, placements
         from repro_torch.launch.dryrun import Zero3Views, run_mesh
+        from repro_torch.models import transformer
         from repro_torch.models.model import build_model
         from repro_torch.optim import adamw
         from repro_torch.train import steps
@@ -88,8 +89,14 @@ STEP_PROG = textwrap.dedent(
         # one microbatch's loss, gradients and global norm
         want_loss, _, want_grads = steps._grads(plain, params, batch)
         grad_pl = tree.leaves(named(rmesh, specs), is_leaf=lambda n: isinstance(n, tuple))
+        cuts = []  # block remat keeps each layer's input as its slice over "model"
+        cut = transformer._SequenceSlice.cut
+        transformer._SequenceSlice.cut = lambda self: (cuts.append(1), cut(self))
         with implicit_replication(), views:
             loss, _, grads = steps._grads(sharded, dparams, dbatch)
+        transformer._SequenceSlice.cut = cut
+        assert len(cuts) == cfg.n_layers, cuts
+        with implicit_replication(), views:
             grads = steps._constrain(grads, grad_pl)
             norm = adamw.global_norm(grads)
         close("loss", loss.full_tensor(), want_loss)

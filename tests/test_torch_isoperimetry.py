@@ -9,6 +9,7 @@ ratio equals the JAX package's NumPy and ``xla`` engines'.
 """
 
 import dataclasses
+import itertools
 
 import numpy as np
 import pytest
@@ -253,3 +254,27 @@ def test_default_device_raises_without_a_card(monkeypatch, name):
     }[name]
     with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
         call()
+
+
+@pytest.mark.parametrize("dims", [(4,), (5, 3), (4, 2, 3), (2, 2, 2), (6, 2, 1, 3)])
+def test_explicit_torus_matches_jax(dims):
+    """``ExplicitTorus``, the brute-force oracle, equals the JAX package's:
+    edge list (double links on length-2 dimensions), and the cut and
+    interior of aligned cuboids and of random vertex sets, which equal
+    the closed forms on the cuboids."""
+    got, want = tn.ExplicitTorus(dims), rn.ExplicitTorus(dims)
+    assert got._edges == want._edges and got.num_edges == want.num_edges == tn.num_edges(dims)
+    assert got.num_vertices == want.num_vertices
+    rng = np.random.default_rng(sum(dims))
+    verts = list(port_geometry.enumerate_vertices(dims))
+    for cuboid in port_geometry.sub_cuboids(dims, max(1, len(verts) // 2)):
+        oriented = next(p for p in itertools.permutations(cuboid) if all(s <= a for s, a in zip(p, dims)))
+        cells = got.cuboid_vertices(oriented)
+        assert cells == want.cuboid_vertices(oriented)
+        assert got.cut(cells) == want.cut(cells) == tn.cuboid_cut_aligned(dims, oriented)
+        assert got.interior(cells) == want.interior(cells)
+    for _ in range(5):
+        subset = [verts[i] for i in rng.choice(len(verts), size=len(verts) // 3, replace=False)]
+        assert got.cut(subset) == want.cut(subset) and got.interior(subset) == want.interior(subset)
+    with pytest.raises(ValueError):
+        got.cuboid_vertices(tuple(a + 1 for a in dims))

@@ -67,6 +67,7 @@ STEP_PROG = textwrap.dedent(
         from repro_torch.configs import get_arch
         from repro_torch.distributed.sharding import ShardingRules, mesh_axis_sizes, named, placements
         from repro_torch.launch.dryrun import Zero3Views, run_mesh
+        from repro_torch.models import transformer
         from repro_torch.models.model import build_model
         from repro_torch.optim import adamw
         from repro_torch.train import steps
@@ -95,10 +96,17 @@ STEP_PROG = textwrap.dedent(
             views = Zero3Views(dparams, fsdp_dim=0)
             checks = {}
 
-            # one microbatch's loss, gradients and global norm
+            # one microbatch's loss, gradients and global norm; block remat
+            # keeps the layer inputs as their slices over "model"
             want_loss, _, want_grads = steps._grads(plain, params, batch)
+            cuts = []
+            cut = transformer._SequenceSlice.cut
+            transformer._SequenceSlice.cut = lambda self: (cuts.append(1), cut(self))
             with implicit_replication(), views:
                 loss, _, grads = steps._grads(sharded, dparams, dbatch)
+            transformer._SequenceSlice.cut = cut
+            checks["layer inputs sliced"] = len(cuts) > 0 or "no layer input sliced"
+            with implicit_replication(), views:
                 grads = steps._constrain(grads, tree.leaves(named(rmesh, specs), is_leaf=is_spec))
                 norm = adamw.global_norm(grads)
             checks["loss"] = close(loss.full_tensor(), want_loss)
@@ -189,14 +197,15 @@ def runs(tmp_path_factory):
     return {r["arch"]: r for r in rows}, jax_loss
 
 
-TRAIN_CHECKS = ("loss", "gradients", "global norm", "step loss", "step grad norm")
+TRAIN_CHECKS = ("layer inputs sliced", "loss", "gradients", "global norm", "step loss", "step grad norm")
 DECODE_CHECKS = ("decode logits", "decode caches", "caches in place", "heads sharded")
 
 
 @pytest.mark.parametrize("name", ARCHS)
 def test_scan_train_step_on_shards_matches_the_plain_step(runs, name):
     """Loss, every gathered gradient, the global norm and the 2-microbatch
-    step's loss and grad norm at rtol 1e-5, atol 1e-6."""
+    step's loss and grad norm at rtol 1e-5, atol 1e-6, with block remat
+    keeping the layer inputs as their slices over "model"."""
     checks = runs[0][name]["checks"]
     assert {k: checks[k] for k in TRAIN_CHECKS} == dict.fromkeys(TRAIN_CHECKS, True)
 
