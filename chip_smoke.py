@@ -60,8 +60,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    serving loop (teacher-forced prefill and greedy decode) at full width
    with torch.profiler: device busy time, the device's idle share and the
    kernels that take the most time.  The MoE configs are profiled in bf16
-   with 16 of their 32 layers (``tools/moe_routing_probe.py`` runs their
-   serve check's two paths there without the gate).
+   with 8 of their 32 layers (``tools/moe_routing_probe.py`` runs their
+   serve check's two paths in bf16 without the gate).
 5. Training.  (a) Two train steps of the reduced float32 granite-3-8b,
    zamba2-2.7b, rwkv6-3b, mixtral-8x7b, internvl2-1b and musicgen-large on
    the card and on the CPU from the same parameters (rwkv6 and musicgen in
@@ -154,17 +154,30 @@ Phases, in order; any failure raises and the script exits non-zero:
    dry-run CLI, each cell in a child process on a fake process group:
    granite-3-8b x train_4k on the (16, 16) mesh and x decode_32k on the
    (2, 16, 16) mesh, calibrated; zamba2-2.7b x train_4k on the (16, 16)
-   mesh (the SSD scan on its head shards), rwkv6-3b x long_500k on the
-   (2, 16, 16) mesh (the WKV scan at batch 1) and mixtral-8x7b x train_4k
-   on the (16, 16) mesh (the MoE dispatch on its batch shards), their
+   mesh (the SSD scan on its head shards) and rwkv6-3b x long_500k on the
+   (2, 16, 16) mesh (the WKV scan at batch 1), their
    collectives from the production run, and llama3-70b x train_4k on the
    (16, 16) mesh, calibrated (one microbatch of 16 rows a rank: block
    remat keeps each layer's input as its 1/16 sequence slice over
-   "model", without which it runs out of memory); each record's state bytes equal
-   the specs' and the local shards built, its peak memory fits the card
-   (the cells run in two lanes of child processes, ``DRYRUN_LANES``),
-   and its roofline terms, per-axis collective bytes, view replications,
-   "model" bytes and times are printed, then a ``distributed`` JSON line.
+   "model", without which it runs out of memory); and four variant
+   cells on the (16, 16) mesh, uncalibrated: granite-3-8b under opt2's
+   knobs (ZeRO-1 with the model axis, 2 microbatches, the CE in chunks of
+   512; mixtral's opt2 does not fit the card), and the hill-climb's
+   (``repro_torch.launch.dryrun.HILLCLIMB_VARIANTS``) rwkv6-3b ``opt4``
+   (ZeRO-1 with no model axis, 256-way fsdp over "data+model"),
+   mixtral-8x7b ``opt1`` (remat "dots", 2 microbatches, chunks of 512,
+   the MoE dispatch on its batch shards) and mixtral-8x7b ``opt3`` (the
+   same under block remat, each layer's input kept as its slice over
+   "model"); each record's state bytes equal the specs' (the variant's)
+   and the local shards built, its peak memory fits the card (all but
+   zamba2 and rwkv6 long run in an early lane of child processes from
+   phase 6 on, ``DRYRUN_EARLY_LANE``, those two in phase 9c,
+   ``DRYRUN_LANES``), and its roofline terms, per-axis collective bytes,
+   view replications, "model" bytes and times are printed, then a
+   ``distributed`` JSON line.  Phases 6-9b share the host and the card
+   with the early lane: their walls, idle shares and times are marked so
+   (``SHARED_NOTE``, and ``"shared"`` in their JSON lines) and are not
+   those of an unshared host.
 10. The rest of the network engines (no kernel of their own), each
    sub-phase on the card and through the port's CPU path, any difference
    failing the run: (a) ``compare_routing`` (DOR against the
@@ -228,7 +241,7 @@ FLASH_WINDOWS = [(1, 256, 4, 2, 32, 64, 64, w) for w in (32, 96, 1024)]
 FLASH_ASYMMETRIC = [(1, 256, 2, 2, 32, 128, 32, None)]
 FLASH_RAGGED = [(2, 12, 4, 2, 64, 128, 128, None)]  # blk = S = 12, not a multiple of 8
 FLASH_HD80 = [(1, 128, 4, 4, 80, 64, 64, None), (2, 256, 8, 8, 80, 128, 128, None)]
-FLASH_HD192 = [(1, 256, 8, 2, 192, 128, 128, None), (1, 384, 4, 2, 192, 128, 128, 100)]  # bf16 only
+FLASH_HD192 = [(1, 256, 8, 2, 192, 128, 128, None), (1, 384, 4, 2, 192, 128, 128, 100)]
 FLASH_SERVE_LIKE = [  # tests/test_torch_cuda.py's serve-like cases, in both dtypes
     (2, 512, 8, 2, 128, 128, 128, None),  # granite's head dim, S = 512
     (2, 512, 8, 8, 80, 128, 128, None),  # zamba2's head dim, S = 512
@@ -240,6 +253,7 @@ ZAMBA_ATTN = (8, 512, 32, 32, 80, 128, 128, None)  # zamba2's shared block
 MIXTRAL_ATTN = (8, 512, 32, 8, 128, 128, 128, 4096)  # mixtral's (and phi's) shape, window 4096 >= S
 INTERNVL2_ATTN = (8, 768, 14, 2, 64, 128, 128, None)  # GQA 7:1, 256 patches + 512 tokens
 MUSICGEN_ATTN = (8, 512, 32, 32, 64, 128, 128, None)  # MHA at hd 64
+NEMOTRON_ATTN = (8, 512, 96, 8, 192, 128, 128, None)  # nemotron-4-340b's serve shape, hd 192
 
 SSD_SWEEP = [  # (B, S, H, P, G, N, chunk), tests/test_kernels.py:110-118
     (1, 64, 2, 16, 1, 8, 16),
@@ -262,11 +276,12 @@ SERVE_ARCHS = ["granite-3-8b", "zamba2-2.7b", "rwkv6-3b"]
 # forward and the teacher-forced decode route near-tied tokens to different
 # experts, the flips compound over layers, and the served check fails
 # (PERF.md; tools/moe_routing_probe.py measures it); float32 is the JAX
-# invariant's own dtype.  Phase 4 profiles them in bf16 with 16 layers
-# (47.0 / 42.1 GB), and phase 5c evaluates mixtral so.
+# invariant's own dtype.  Phase 4 profiles them in bf16 with 8 layers
+# (23.7 / 21.3 GB; 8, not 16, keeps the script inside its time limit), and
+# phase 5c evaluates mixtral in bf16 with 16 (47.0 GB).
 MOE_SERVE_ARCHS = ["mixtral-8x7b", "phi3.5-moe-42b-a6.6b"]
 MOE_SERVE = (8, "float32")  # (layers, dtype) of phase 3
-MOE_PROFILE = (16, "bfloat16")  # (layers, dtype) of phase 4
+MOE_PROFILE = (8, "bfloat16")  # (layers, dtype) of phase 4
 # Phase 4's serving loop: PROFILE_PROMPT teacher-forced steps, then 8
 # generated; short, for the script's time limit.
 PROFILE_PROMPT = 32
@@ -349,23 +364,43 @@ F32_FLOPS_PER_S = 67e12  # float32 outside the tensor cores, H100 SXM data sheet
 RING_SHAPE = (4096, 4096, 4096)  # (m, k, n) of the one-rank rings
 DRYRUN_CELLS = [("granite-3-8b", "train_4k", "single"), ("granite-3-8b", "decode_32k", "multi"),
                 # the SSD scan on its head shards (80 heads over 16), the WKV scan at
-                # batch 1 on 512 fake ranks, the MoE dispatch on its batch shards
+                # batch 1 on 512 fake ranks
                 ("zamba2-2.7b", "train_4k", "single"), ("rwkv6-3b", "long_500k", "multi"),
-                ("mixtral-8x7b", "train_4k", "single"),
                 # one microbatch of 16 rows a rank: the layer inputs kept as
                 # their slices over "model" (whole, 86 GB a rank)
-                ("llama3-70b", "train_4k", "single")]
-# The cells run in two lanes of child processes at once, each lane's in
-# order; their peak allocated bytes on an H100 (GB) keep any two that
-# overlap on the card below its 80 GB: zamba2 46.2 then llama3-70b 38.6 in
-# one lane, granite train 8.9, granite decode 2.0, rwkv6 0.1, mixtral 24.8
-# in the other.
-DRYRUN_LANES = [[2, 5], [0, 1, 3, 4]]
+                ("llama3-70b", "train_4k", "single"),
+                # variants, each a dict or the name of a hill-climb variant
+                # (repro_torch.launch.dryrun.HILLCLIMB_VARIANTS): ZeRO-1 with
+                # the model axis on granite-3-8b under opt2's knobs (mixtral's
+                # opt2 does not fit the card: its MoE "wo" is replicated over
+                # both axes, as JAX's rules lay it out, so parameters and
+                # gradients alone are 77.7 GB a rank; PERF.md §6), ZeRO-1 with
+                # no model axis, remat "dots" with the CE in chunks, and the
+                # MoE under block remat with the CE in chunks (mixtral's
+                # unvaried cell, block remat at 4 microbatches with the CE
+                # whole, left out for time)
+                ("granite-3-8b", "train_4k", "single",
+                 {"tag": "zero1", "microbatches": 2, "remat": "block", "loss_chunk": 512, "zero_stage": 1}),
+                ("rwkv6-3b", "train_4k", "single", "opt4"), ("mixtral-8x7b", "train_4k", "single", "opt1"),
+                ("mixtral-8x7b", "train_4k", "single", "opt3")]
+# The cells run in lanes of child processes, each lane's in order.  The
+# early lane runs from phase 6 on, beside phases 6-9b (which hold at most
+# 12.5 GB of the card), its cells of large peaks first so that only small
+# ones can still run when phase 9c starts its lane (allocated on an H100,
+# GB: mixtral opt1 50.2, mixtral opt3 30.9, llama3-70b 38.6, rwkv6 opt4
+# 15.7, granite zero1 14.5, granite train 8.9, granite decode 2.0); phase
+# 9c's lane runs zamba2 (46.2), then rwkv6 long (0.1): no two overlapping
+# cells exceed the card's 85 GB.
+DRYRUN_EARLY_LANE = [7, 8, 4, 6, 5, 0, 1]
+DRYRUN_LANES = [[2, 3]]
 # Cells run without the collective calibration (their collectives are the
 # production run's, every layer traced), to keep the script inside its
-# time limit; the CLI's --all runs every cell calibrated.
-DRYRUN_UNCALIBRATED = {("zamba2-2.7b", "train_4k", "single"), ("rwkv6-3b", "long_500k", "multi"),
-                       ("mixtral-8x7b", "train_4k", "single")}
+# time limit; so does every variant cell.  The CLI's --all runs every cell
+# calibrated.
+DRYRUN_UNCALIBRATED = {("zamba2-2.7b", "train_4k", "single"), ("rwkv6-3b", "long_500k", "multi")}
+# What phases 6-9b measure shares the host's cores and the card with the
+# early lane's child processes.
+SHARED_NOTE = "taken beside phase 9c's early lane of dry-run child processes (host and card shared)"
 # The collective term's link rate: one 400 Gb/s NDR InfiniBand port per
 # H100, the per-GPU rate between the nodes of a DGX H100 cluster.
 DRYRUN_LINK_BW = 50e9
@@ -833,8 +868,9 @@ def phase2_kernels(torch, gen, build_logs: dict) -> dict:
         for case in (FLASH_SWEEP + FLASH_WINDOWS + FLASH_ASYMMETRIC + FLASH_RAGGED + FLASH_HD80
                      + FLASH_SERVE_LIKE):
             check_flash(case, dtype, gen, tol)
-    for case in FLASH_HD192:
-        check_flash(case, torch.bfloat16, gen, 2e-2)
+    for dtype, tol in ((torch.float32, 2e-4), (torch.bfloat16, 2e-2)):
+        for case in FLASH_HD192:
+            check_flash(case, dtype, gen, tol)
     print("phase 2: flash attention at the shapes the MoE and modality configs give it")
     for case in (INTERNVL2_ATTN, MUSICGEN_ATTN):  # GQA 7:1 and MHA at hd 64
         check_flash(case, torch.float32, gen, 2e-4)
@@ -848,6 +884,8 @@ def phase2_kernels(torch, gen, build_logs: dict) -> dict:
                                    ("flash_fwd hd80", ZAMBA_ATTN, torch.bfloat16, 2e-2),
                                    ("flash_fwd gqa7 hd64", INTERNVL2_ATTN, torch.bfloat16, 2e-2),
                                    ("flash_fwd mha hd64", MUSICGEN_ATTN, torch.bfloat16, 2e-2),
+                                   ("flash_fwd hd192", NEMOTRON_ATTN, torch.bfloat16, 2e-2),
+                                   ("flash_fwd f32 hd192", NEMOTRON_ATTN, torch.float32, 2e-4),
                                    ("flash_fwd f32 moe", MIXTRAL_ATTN, torch.float32, 2e-4)):
         float32 = dtype == torch.float32
         err, (q, k, v) = check_flash(case, dtype, gen, tol, float64=float32)
@@ -873,6 +911,8 @@ def phase2_kernels(torch, gen, build_logs: dict) -> dict:
     out["flash_fwd"]["at_internvl2_gqa7_hd64"] = out["flash_fwd gqa7 hd64"]
     out["flash_fwd"]["at_musicgen_mha_hd64"] = out["flash_fwd mha hd64"]
     out["flash_fwd"]["at_moe_serve_f32"] = out["flash_fwd f32 moe"]
+    out["flash_fwd"]["at_nemotron_hd192"] = out["flash_fwd hd192"]
+    out["flash_fwd"]["at_nemotron_hd192_f32"] = out["flash_fwd f32 hd192"]
 
     print("phase 2: SSD, tensor-core kernel (ssd_fwd_sm90.cu): nvcc -Xptxas -v")
     ssd_smem = ssd_ops._kernel().ssd_fwd_sm90_smem_bytes()
@@ -959,6 +999,9 @@ def phase2_kernels(torch, gen, build_logs: dict) -> dict:
                                ("flash_fwd hd80", "flash_fwd hd80", ZAMBA_ATTN[:5]),
                                ("flash_fwd GQA 7:1 hd64", "flash_fwd gqa7 hd64", INTERNVL2_ATTN[:5]),
                                ("flash_fwd MHA hd64", "flash_fwd mha hd64", MUSICGEN_ATTN[:5]),
+                               ("flash_fwd hd192", "flash_fwd hd192", NEMOTRON_ATTN[:5]),
+                               ("flash_fwd float32 hd192 (flash_fwd_tf32_sm90.cu, one K/V stage)",
+                                "flash_fwd f32 hd192", NEMOTRON_ATTN[:5]),
                                ("flash_fwd float32 (flash_fwd_tf32_sm90.cu), window 4096",
                                 "flash_fwd f32 moe", MIXTRAL_ATTN[:5]),
                                ("ssd_fwd", "ssd_fwd", ZAMBA_SSD),
@@ -1989,7 +2032,7 @@ def phase9a_strassen(torch, smi: str) -> dict:
                "bound_by": "operations" if flops / F32_FLOPS_PER_S > io_bytes / HBM_BYTES_PER_S else "bytes"}
         out["depths"].append(row)
         print(f"phase 9a: Strassen-Winograd n={n} depth {depth}: {ms:.3f} ms (torch.matmul {matmul_ms:.3f} ms), "
-              f"{flops:.4e} FLOPs, bound {bound_ms:.3f} ms at the float32 rate, rel err {err:.3e} on {smi}",
+              f"{flops:.4e} FLOPs, bound {bound_ms:.3f} ms at the float32 rate, rel err {err:.3e} on {smi} (shared)",
               flush=True)
     del ref, a, b
     torch.cuda.empty_cache()
@@ -2048,30 +2091,38 @@ def phase9b_ring(torch) -> dict:
     return out
 
 
-def phase9c_dryrun(torch, smi: str) -> dict:
-    """Phase 9c: the dry-run CLI in a child process per cell (a process
-    holds one fake process group); the CLI fails a cell whose local shards
-    do not hold its specs' state bytes or whose peak does not fit the
-    card, and each record is held to the specs' bytes again here."""
-    from repro_torch.configs import SHAPES, get_arch
-    from repro_torch.distributed.sharding import ShardingRules
-    from repro_torch.launch.dryrun import RESULTS_DIR, cell_state_bytes
+def start_dryrun_lanes(torch, smi: str, lanes):
+    """Start phase 9c's lanes of dry-run cells (indices into
+    ``DRYRUN_CELLS``): the dry-run CLI in a child process per cell (a
+    process holds one fake process group), each lane's cells in order, the
+    lanes at once.  The CLI fails a cell whose local shards do not hold its
+    specs' state bytes or whose peak does not fit the card, and each record
+    is held to the specs' bytes again here.  A variant cell's dict is its
+    entry's, or the hill-climb's variant of that name.  Returns a function
+    that waits for the lanes and returns their rows by index."""
+    from repro_torch.configs import SHAPES, all_archs, get_arch
+    from repro_torch.launch.dryrun import cell_rules, cell_state_bytes, hillclimb_variant, record_path
     from repro_torch.launch.mesh import production_mesh_shape
 
+    all_archs()  # the registry loaded here, not by the lanes' threads at once
     env = {**__import__("os").environ, "PYTHONPATH": str(REPO / "src")}
     torch.cuda.empty_cache()  # the card's memory to the children
 
     def run(cell):
-        arch_name, shape_name, mesh_kind = cell
+        arch_name, shape_name, mesh_kind = cell[:3]
+        variant = cell[3] if len(cell) > 3 else None
+        if isinstance(variant, str):
+            variant = hillclimb_variant(variant, arch_name)
         t0 = time.perf_counter()
-        uncalibrated = (arch_name, shape_name, mesh_kind) in DRYRUN_UNCALIBRATED
+        uncalibrated = variant is not None or cell in DRYRUN_UNCALIBRATED
         subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch_name,
                         "--shape", shape_name, "--mesh", mesh_kind, "--link-bw", repr(DRYRUN_LINK_BW),
-                        "--force", "--device", "cuda"] + ["--skip-calibration"] * uncalibrated,
+                        "--force", "--device", "cuda"] + ["--skip-calibration"] * uncalibrated
+                       + (["--variant", json.dumps(variant)] if variant else []),
                        check=True, env=env, cwd=REPO)
         wall = time.perf_counter() - t0
-        rec = json.loads((RESULTS_DIR / f"{arch_name}__{shape_name}__{mesh_kind}.json").read_text())
-        rules = ShardingRules(get_arch(arch_name), production_mesh_shape(mesh_kind == "multi"))
+        rec = json.loads(record_path(arch_name, shape_name, mesh_kind, variant).read_text())
+        rules = cell_rules(get_arch(arch_name), production_mesh_shape(mesh_kind == "multi"), variant)
         want, _ = cell_state_bytes(get_arch(arch_name), SHAPES[shape_name], rules)
         peak = rec["memory_analysis"]["peak_allocated_bytes"]
         built = rec["memory_analysis"]["shard_bytes_allocated"]
@@ -2082,9 +2133,10 @@ def phase9c_dryrun(torch, smi: str) -> dict:
         row = {key: rec[key] for key in ("arch", "shape", "mesh", "chips", "compute_term", "memory_term",
                                          "collective_term", "bottleneck", "collective_bytes",
                                          "per_axis_collectives", "lower_seconds", "compile_seconds",
-                                         "memory_analysis", "view_replications", "link_bw")}
+                                         "memory_analysis", "view_replications", "link_bw", "variant")}
         row["wall_s"] = wall
-        print(f"phase 9c: {arch_name} x {shape_name} x {mesh_kind} ({rec['chips']} fake ranks): "
+        tag = f" {variant['tag']}" if variant else ""
+        print(f"phase 9c: {arch_name} x {shape_name} x {mesh_kind}{tag} ({rec['chips']} fake ranks): "
               f"compute {rec['compute_term']:.4e} s, memory {rec['memory_term']:.4e} s, collective "
               f"{rec['collective_term']:.4e} s at {DRYRUN_LINK_BW:.3e} B/s, bottleneck {rec['bottleneck']}; "
               f"per axis {json.dumps(rec['per_axis_collectives'])}; run {rec['lower_seconds']} s, "
@@ -2093,11 +2145,30 @@ def phase9c_dryrun(torch, smi: str) -> dict:
               f"\"model\" bytes {rec['per_axis_collectives'].get('model', {}).get('bytes', 0.0):.4e}", flush=True)
         return row
 
-    rows = {}
-    with ThreadPoolExecutor(max_workers=len(DRYRUN_LANES)) as pool:
-        for lane, done in zip(DRYRUN_LANES, pool.map(lambda lane: [run(DRYRUN_CELLS[i]) for i in lane],
-                                                     DRYRUN_LANES)):
-            rows.update(zip(lane, done))
+    pool = ThreadPoolExecutor(max_workers=len(lanes))
+    futures = [pool.submit(lambda lane=lane: [run(DRYRUN_CELLS[i]) for i in lane]) for lane in lanes]
+
+    def wait() -> dict:
+        rows = {}
+        for lane, future in zip(lanes, futures):
+            rows.update(zip(lane, future.result()))
+        pool.shutdown()
+        return rows
+
+    return wait
+
+
+def phase9c_dryrun(torch, smi: str, early=None) -> dict:
+    """Phase 9c: the ``DRYRUN_LANES`` cells beside what is left of the early
+    lane (``early``, the waiting function :func:`start_dryrun_lanes`
+    returned when it was started; started here without it)."""
+    if early is None:
+        early = start_dryrun_lanes(torch, smi, [DRYRUN_EARLY_LANE])
+    lanes = start_dryrun_lanes(torch, smi, DRYRUN_LANES)
+    t0 = time.perf_counter()
+    rows = early()
+    print(f"phase 9c: the early lane joined after {time.perf_counter() - t0:.1f} s", flush=True)
+    rows.update(lanes())
     assert sorted(rows) == list(range(len(DRYRUN_CELLS)))
     return {"cells": [rows[i] for i in range(len(DRYRUN_CELLS))]}
 
@@ -2477,23 +2548,30 @@ def main() -> int:
     print(f"phase 5: wall {time.perf_counter() - t_phase:.1f} s", flush=True)
 
     # -- phase 6: the network engines --------------------------------------------
+    # Phase 9c's early lane (dry-run cells in child processes) runs beside
+    # phases 6-9b, which are host-bound and keep little on the card; phase
+    # 9c joins it.  What phases 6-9b time is taken beside it.
+    print(f"phases 6-9b: {SHARED_NOTE}; this process holds "
+          f"{torch.cuda.memory_allocated()} B of the card", flush=True)
+    early_dryrun = start_dryrun_lanes(torch, smi, [DRYRUN_EARLY_LANE])
+    torch.cuda.reset_peak_memory_stats()
     t_phase = time.perf_counter()
     network = phase6_network(smi)
-    print(f"phase 6: wall {time.perf_counter() - t_phase:.1f} s", flush=True)
-    print(json.dumps({"network": network, "card": smi}))
+    print(f"phase 6: wall {time.perf_counter() - t_phase:.1f} s (shared)", flush=True)
+    print(json.dumps({"network": network, "card": smi, "shared": SHARED_NOTE}))
 
     # -- phase 7: the allocation engines -------------------------------------------
     t_phase = time.perf_counter()
     allocation = phase7_allocation(smi)
     scenario_runs = allocation.pop("services")
-    print(f"phase 7: wall {time.perf_counter() - t_phase:.1f} s", flush=True)
-    print(json.dumps({"allocation": allocation, "card": smi}))
+    print(f"phase 7: wall {time.perf_counter() - t_phase:.1f} s (shared)", flush=True)
+    print(json.dumps({"allocation": allocation, "card": smi, "shared": SHARED_NOTE}))
 
     # -- phase 8: the fleet planner ----------------------------------------------
     t_phase = time.perf_counter()
     planner = phase8_planner(smi)
-    print(f"phase 8: wall {time.perf_counter() - t_phase:.1f} s", flush=True)
-    print(json.dumps({"planner": planner, "card": smi}))
+    print(f"phase 8: wall {time.perf_counter() - t_phase:.1f} s (shared)", flush=True)
+    print(json.dumps({"planner": planner, "card": smi, "shared": SHARED_NOTE}))
 
     # -- phase 9: the dry-run and the distributed layer, phase 11 beside 9c --------
     # Phase 9c's cells run in child processes and keep the host busy, not
@@ -2501,14 +2579,15 @@ def main() -> int:
     # meanwhile, and are joined before phase 10 profiles the card.
     t_phase = time.perf_counter()
     distributed = {"strassen": phase9a_strassen(torch, smi), "ring": phase9b_ring(torch)}
+    print(f"phases 6-9b: this process's peak allocated {torch.cuda.max_memory_allocated()} B", flush=True)
     with ThreadPoolExecutor(max_workers=1) as pool:
         examples_run = pool.submit(phase11_examples)
-        distributed["dryrun"] = phase9c_dryrun(torch, smi)
+        distributed["dryrun"] = phase9c_dryrun(torch, smi, early_dryrun)
         print(f"phase 9: wall {time.perf_counter() - t_phase:.1f} s", flush=True)
         examples = examples_run.result()
     print(f"phase 11: wall {examples['wall_s']:.1f} s, beside phase 9c; phases 9 and 11 together "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
-    print(json.dumps({"distributed": distributed, "card": smi}))
+    print(json.dumps({"distributed": distributed, "card": smi, "shared": SHARED_NOTE}))
     print(json.dumps({"examples": examples, "card": smi}))
 
     # -- phase 10: the rest of the network engines --------------------------------
@@ -2550,7 +2629,8 @@ def main() -> int:
                if name == "flash_fwd" else {}),
             **{key: m[key] for key in ("ms_eager", "library_ms_eager", "at_zamba2_hd80",
                                        "at_internvl2_gqa7_hd64", "at_musicgen_mha_hd64",
-                                       "at_moe_serve_f32",
+                                       "at_moe_serve_f32", "at_nemotron_hd192",
+                                       "at_nemotron_hd192_f32",
                                        "bound_f32_ms", "bound_f32_by", "ms_f32", "ms_eager_f32",
                                        "bound_f32_inputs_ms") if key in m},
         })

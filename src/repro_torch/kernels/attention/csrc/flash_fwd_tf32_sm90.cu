@@ -17,7 +17,7 @@
 // tensor maps over (hd, heads, S, B) in 32-float (128-byte) swizzled chunks,
 // zero-filled past S and past hd (hd 16 pads to 32, hd 80 to 96); O is
 // written straight from the accumulators, rows past S dropped.  Head dims
-// 16, 32, 64, 80 and 128.
+// 16, 32, 64, 80, 128 and 192.
 //
 // Products on the tensor cores at float32 accuracy.  Every product is a
 // split-TF32 wgmma (m64nNk8, float32 accumulators): a = hi + lo with hi = a
@@ -70,6 +70,15 @@
 // Shared memory at hd 128: Q 64 KB, K hi + lo 2 x 32 KB, V as loaded 2 x 16
 // KB, V^T hi + lo 2 x 32 KB: 224 KB of the 227 a block may have.
 //
+// Head dim 192 (nemotron-4-340b's) fits neither: two stages would take 336
+// KB, and Q hi (96 words) beside O (96) would leave a consumer thread too
+// few registers.  So at hd 192 the K/V ring has one stage (Q 96 KB, K hi +
+// lo 48 KB, V 24 KB, V^T hi + lo 48 KB: 216 KB), and Q stays in shared
+// memory as loaded: for each group of two k-steps a consumer reads its A
+// fragments of Q, scales and splits them into registers (two sets, so one
+// group loads while the last one's products run), and all three products
+// of Q.K^T take A from registers.  Groups of four k-steps spilled.
+//
 // Registers: setmaxnreg gives each consumer thread 224 (O 64, Q hi 64, S
 // 16, or P hi and lo 32 and a 16-word quarter of a tile's P.V^T, at hd 128)
 // and each producer thread 56: together the 384 x 168 registers the block
@@ -92,7 +101,6 @@ namespace {
 
 constexpr int BQ = 128;                        // q rows per work tile
 constexpr int BK = 32;                         // keys per K/V tile
-constexpr int NST = 2;                         // K/V ring depth
 constexpr int NCONSUMERS = 256;                // two warpgroups of 64 rows
 constexpr int NTHREADS = NCONSUMERS + 128;     // and one producer warpgroup
 constexpr int NTRANSFORM = 96;                 // its three splitting warps
@@ -103,6 +111,8 @@ constexpr float LOG2E = 1.4426950408889634f;
 // the head dim (one 128-byte swizzle row) for every row of a tile.
 template <int HD>
 struct Tile {
+  static constexpr int NST = HD > 128 ? 1 : 2;             // K/V ring depth
+  static constexpr bool QREG = HD <= 128;                  // Q hi held in registers
   static constexpr int HDP = (HD + 31) / 32 * 32;          // the head dim padded
   static constexpr int NCH = HDP / 32;                     // 128-byte head-dim chunks
   static constexpr int NKS = HD / 8;                       // k-steps of Q.K^T
@@ -346,7 +356,7 @@ template <int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t* a, uint64_t desc_b,
                                          int accumulate = 1) {
   static_assert(N == 16 || N == 32 || N == 64 || N == 80 || N == 128,
-                "P.V is as wide as a head dim the kernel takes");
+                "P.V is as wide as a head dim the kernel takes, or 32 columns of it");
   if constexpr (N == 16) wgmma_rs_n16(d, a, desc_b, accumulate);
   else if constexpr (N == 32) wgmma_rs_n32(d, a, desc_b, accumulate);
   else if constexpr (N == 64) wgmma_rs_n64(d, a, desc_b, accumulate);
@@ -548,17 +558,17 @@ flash_fwd_tf32_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   const uint32_t q_full = base + T::BAR_OFF;
   const uint32_t q_empty = q_full + 8;
   const uint32_t k_full = q_empty + 8;
-  const uint32_t k_ready = k_full + 8 * NST;
-  const uint32_t k_empty = k_ready + 8 * NST;
-  const uint32_t v_full = k_empty + 8 * NST;
-  const uint32_t v_ready = v_full + 8 * NST;
-  const uint32_t v_empty = v_ready + 8 * NST;
+  const uint32_t k_ready = k_full + 8 * T::NST;
+  const uint32_t k_empty = k_ready + 8 * T::NST;
+  const uint32_t v_full = k_empty + 8 * T::NST;
+  const uint32_t v_ready = v_full + 8 * T::NST;
+  const uint32_t v_empty = v_ready + 8 * T::NST;
   const int n_work = (S + BQ - 1) / BQ * B * H;
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
     mbar_init(q_empty, NCONSUMERS / 32);                    // lane 0 of each consumer warp
-    for (int s = 0; s < NST; ++s) {
+    for (int s = 0; s < T::NST; ++s) {
       mbar_init(k_full + 8 * s, 1);
       mbar_init(k_ready + 8 * s, NTRANSFORM / 32);          // lane 0 of each splitting warp
       mbar_init(k_empty + 8 * s, NCONSUMERS / 32);
@@ -572,7 +582,7 @@ flash_fwd_tf32_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
 
   // Each block walks the work tiles blockIdx.x, + gridDim.x, ...; `n_done`
   // counts the work tiles done, `kv` the K/V tiles through the ring (stage
-  // kv % NST).  A barrier's phase u completes with the u-th use of its
+  // kv % T::NST).  A barrier's phase u completes with the u-th use of its
   // buffer, so a wait names the parity of u.
   if (threadIdx.x >= NCONSUMERS) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n" ::: "memory");
@@ -586,7 +596,7 @@ flash_fwd_tf32_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
         for (int c = 0; c < T::NCH; ++c)
           tma_load_4d(base + c * T::Q_CHUNK, &tm_q, q_full, c * 32, w.h, w.q0, w.b);
         for (int j = w.j_lo; j <= w.j_hi; ++j, ++kv) {
-          const int s = kv % NST, use = kv / NST;
+          const int s = kv % T::NST, use = kv / T::NST;
           if (use > 0) mbar_wait(k_empty + 8 * s, (use - 1) & 1);
           mbar_expect_tx(k_full + 8 * s, T::KV_BYTES);
           for (int c = 0; c < T::NCH; ++c)
@@ -607,7 +617,7 @@ flash_fwd_tf32_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       for (int t = blockIdx.x; t < n_work; t += gridDim.x) {
         const Work w = work_of(t, B, S, H, KH, causal, window);
         for (int j = w.j_lo; j <= w.j_hi; ++j, ++kv) {
-          const int s = kv % NST, use = kv / NST;
+          const int s = kv % T::NST, use = kv / T::NST;
           uint8_t* const kh = gbase + T::K_OFF + s * 2 * T::KV_BYTES;
           mbar_wait(k_full + 8 * s, use & 1);
           split_k<HD>(kh, kh + T::KV_BYTES, tt);
@@ -644,9 +654,9 @@ flash_fwd_tf32_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     // Q of this warpgroup's rows, scaled: hi into registers in the A-fragment
     // layout, lo in place (two of Q.K^T's three products take A from
     // registers, which halves what they read of shared memory).
-    uint32_t qhi[T::NKS * 4];
+    uint32_t qhi[T::QREG ? T::NKS * 4 : 1];
     mbar_wait(q_full, n_done & 1);
-    if (has_rows) {
+    if (T::QREG && has_rows) {
 #pragma unroll
       for (int k = 0; k < T::NKS; ++k) {
 #pragma unroll
@@ -671,7 +681,7 @@ flash_fwd_tf32_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     float l_run[2] = {0.f, 0.f};                          // this thread's share of the row sums
     float corr[2];                                        // this tile's correction of O
     for (int j = w.j_lo; j <= w.j_hi; ++j, ++kv) {
-      const int s = kv % NST, ph = (kv / NST) & 1;
+      const int s = kv % T::NST, ph = (kv / T::NST) & 1;
       const bool live = j >= my_lo && j <= my_hi;           // uniform over the warpgroup
       const uint32_t khi = base + T::K_OFF + s * 2 * T::KV_BYTES, klo = khi + T::KV_BYTES;
       const uint32_t vhi = base + T::VT_OFF + s * 2 * T::VT_BYTES, vlo = vhi + T::VT_BYTES;
@@ -682,20 +692,62 @@ flash_fwd_tf32_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
         // S = Q.K^T: lo.hi + hi.lo + hi.hi per k-step.
 #pragma unroll
         for (int i = 0; i < 16; ++i) sc[i] = 0.f;
-        fence_regs(sc);
-        fence_regs(qhi);
-        wgmma_fence();
+        if constexpr (T::QREG) {
+          fence_regs(sc);
+          fence_regs(qhi);
+          wgmma_fence();
 #pragma unroll
-        for (int k = 0; k < T::NKS; ++k) {
-          const uint64_t dkh = desc_at(khi + kstep(k, T::KV_CHUNK));
-          wgmma_ss_n32(sc, desc_at(q_wg + kstep(k, T::Q_CHUNK)), dkh);
-          wgmma_rs_n32(sc, &qhi[4 * k], desc_at(klo + kstep(k, T::KV_CHUNK)));
-          wgmma_rs_n32(sc, &qhi[4 * k], dkh);
+          for (int k = 0; k < T::NKS; ++k) {
+            const uint64_t dkh = desc_at(khi + kstep(k, T::KV_CHUNK));
+            wgmma_ss_n32(sc, desc_at(q_wg + kstep(k, T::Q_CHUNK)), dkh);
+            wgmma_rs_n32(sc, &qhi[4 * k], desc_at(klo + kstep(k, T::KV_CHUNK)));
+            wgmma_rs_n32(sc, &qhi[4 * k], dkh);
+          }
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(sc);
+          fence_regs(qhi);
+        } else {
+          // Q's A fragments, scaled and split, two k-steps at a time into
+          // one of two register sets (hi in words 0-3 of a k-step, lo in
+          // 4-7); a set is refilled once the products that read it are done.
+          constexpr int G = 2;
+          static_assert(T::NKS % G == 0, "k-steps come in groups of two");
+          uint32_t qa[2][8 * G];
+          fence_regs(sc);
+#pragma unroll
+          for (int g = 0; g < T::NKS / G; ++g) {
+            uint32_t(&a)[8 * G] = qa[g & 1];
+            if (g >= 2) wgmma_wait<1>();
+            fence_regs(a);
+#pragma unroll
+            for (int k = 0; k < G; ++k) {
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const float x = __fmul_rn(*reinterpret_cast<const float*>(
+                    gbase + swz(64 * wg + r + 8 * (e & 1), 8 * (g * G + k) + qd + 4 * (e >> 1),
+                                T::Q_CHUNK)), scale);
+                const float h = tf32_hi(x);
+                a[8 * k + e] = __float_as_uint(h);
+                a[8 * k + 4 + e] = __float_as_uint(tf32_rna(x - h));
+              }
+            }
+            fence_regs(a);
+            wgmma_fence();
+#pragma unroll
+            for (int k = 0; k < G; ++k) {
+              const uint64_t dkh = desc_at(khi + kstep(g * G + k, T::KV_CHUNK));
+              wgmma_rs_n32(sc, &a[8 * k + 4], dkh);
+              wgmma_rs_n32(sc, &a[8 * k], desc_at(klo + kstep(g * G + k, T::KV_CHUNK)));
+              wgmma_rs_n32(sc, &a[8 * k], dkh);
+            }
+            wgmma_commit();
+          }
+          wgmma_wait<0>();
+          fence_regs(sc);
+          fence_regs(qa[0]);
+          fence_regs(qa[1]);
         }
-        wgmma_commit();
-        wgmma_wait<0>();
-        fence_regs(sc);
-        fence_regs(qhi);
       }
       release(k_empty + 8 * s, lane);
       if (has_rows && j == my_hi) release(q_empty, lane);  // this warpgroup's last Q.K^T
@@ -858,7 +910,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S, i
 extern "C" {
 
 // float32 q (B, S, H, hd), k and v (B, S, KH, hd), o like q; all contiguous
-// and 16-byte aligned.  hd in {16, 32, 64, 80, 128}.  window <= 0 means no
+// and 16-byte aligned.  hd in {16, 32, 64, 80, 128, 192}.  window <= 0 means no
 // window.  Returns 0 on success, a cudaError_t of the launch, or 1000 when a
 // tensor map cannot be made; the kernel runs on `stream` and is not waited
 // for.
@@ -873,6 +925,7 @@ int flash_fwd_tf32_sm90(const void* q, const void* k, const void* v, void* o, in
     case 64: return launch<64>(q, k, v, o, B, S, H, KH, causal, window, scale, s);
     case 80: return launch<80>(q, k, v, o, B, S, H, KH, causal, window, scale, s);
     case 128: return launch<128>(q, k, v, o, B, S, H, KH, causal, window, scale, s);
+    case 192: return launch<192>(q, k, v, o, B, S, H, KH, causal, window, scale, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -885,6 +938,7 @@ int flash_fwd_tf32_sm90_smem_bytes(int hd) {
     case 64: return Tile<64>::SMEM;
     case 80: return Tile<80>::SMEM;
     case 128: return Tile<128>::SMEM;
+    case 192: return Tile<192>::SMEM;
     default: return 0;
   }
 }

@@ -39,7 +39,7 @@ tf32_launches = 0
 # blk_k are, since the result does not depend on the block sizes.
 HEAD_DIMS = {
     torch.bfloat16: (16, 32, 64, 80, 128, 192),
-    torch.float32: (16, 32, 64, 80, 128),
+    torch.float32: (16, 32, 64, 80, 128, 192),
 }
 KERNELS = {torch.bfloat16: "flash_fwd_sm90", torch.float32: "flash_fwd_tf32_sm90"}
 

@@ -25,7 +25,24 @@ For each cell the dry-run:
   5. writes a JSON record to ``build/dryrun/``, ``ok`` only when the local
      shards built hold the specs' state bytes and, on the card, the peak
      allocated bytes fit its memory (``checks`` lists what failed); the
-     CLI exits non-zero for a cell that is not ``ok``.
+     CLI exits non-zero for a cell that is not ``ok``.  A cell whose run
+     runs out of the card's memory is recorded, not raised: ``ok`` false,
+     the error in ``checks``, the bytes allocated when it failed and the
+     request that failed, the state bytes and the analytic terms, and no
+     collective figures.  A calibration run that runs out of memory (at
+     one microbatch it holds more rows than the cell's own) leaves the
+     production run's counts in place, with the error in ``notes`` and
+     ``calibration_out_of_memory``.
+
+A cell takes JAX's ``variant`` dict (``benchmarks/perf_hillclimb.py``'s
+knobs): ``microbatches``, ``remat`` ("block"), ``loss_chunk`` (None),
+``zero_stage`` (3), ``model_axis`` ("model"; "none" for none) and
+``fsdp_axes`` (every other axis); ``tag`` names the record
+``{arch}__{shape}__{mesh}__{tag}.json``, and the record keeps the dict as
+``variant``.  Under ZeRO-1 (``zero_stage`` 1) the parameters are
+replicated over the fsdp axes and their moments sharded there
+(:func:`repro_torch.optim.adamw.update`); with no model axis the step runs
+on a one-dimensional mesh of every fsdp axis (``"data+model"``).
 
 The step runs on a two-dimensional mesh of the rules' groups, (the fsdp
 axes flattened, "model"): on the multi-pod mesh ("pod", "data", "model")
@@ -42,6 +59,8 @@ Usage:
   python -m repro_torch.launch.dryrun --arch granite-3-8b --shape train_4k --mesh single --link-bw 50e9
   python -m repro_torch.launch.dryrun --all --mesh both --link-bw 50e9
   python -m repro_torch.launch.dryrun --all --mesh both --link-bw 50e9 --force --part 1/3   # a third of it
+  python -m repro_torch.launch.dryrun --arch rwkv6-3b --shape train_4k --mesh single --link-bw 50e9 \
+      --variant '{"tag": "opt4", "zero_stage": 1, "model_axis": "none", "fsdp_axes": ["data", "model"]}'
 """
 
 from __future__ import annotations
@@ -93,6 +112,58 @@ MICROBATCHES = {
     "rwkv6-3b": 2,
     "internvl2-1b": 1,
 }
+
+# The hill-climb's cells and variants, verbatim from the JAX package's
+# ``benchmarks/perf_hillclimb.py`` (``tools/perf_hillclimb.py`` runs them).
+HILLCLIMB_CELLS = [
+    ("nemotron-4-340b", "train_4k", "single"),
+    ("rwkv6-3b", "train_4k", "single"),
+    ("mixtral-8x7b", "train_4k", "single"),
+]
+
+HILLCLIMB_VARIANTS = {
+    "baseline2": {"tag": "baseline2"},  # re-measure with bilinear calibration
+    "opt1": {
+        "nemotron-4-340b": {"tag": "opt1", "microbatches": 2, "remat": "dots", "loss_chunk": 512},
+        "rwkv6-3b": {"tag": "opt1", "microbatches": 1, "remat": "dots", "loss_chunk": 512},
+        "mixtral-8x7b": {"tag": "opt1", "microbatches": 2, "remat": "dots", "loss_chunk": 512},
+    },
+    # opt2: ZeRO-1 for archs whose bf16 params fit per-device after TP
+    # (kills the FSDP weight/activation gathers); nemotron cannot (42 GB/dev)
+    # so it keeps ZeRO-3 with remat=block (undo the opt1 memory explosion)
+    # and chunked CE.
+    "opt2": {
+        "nemotron-4-340b": {"tag": "opt2", "microbatches": 4, "remat": "block", "loss_chunk": 512},
+        "rwkv6-3b": {"tag": "opt2", "microbatches": 1, "remat": "block", "loss_chunk": 512, "zero_stage": 1},
+        "mixtral-8x7b": {"tag": "opt2", "microbatches": 2, "remat": "block", "loss_chunk": 512, "zero_stage": 1},
+    },
+    # opt3: best-of combinations — nemotron: opt1's microbatch cut without
+    # the remat=dots memory explosion; mixtral: back to ZeRO-3 with the
+    # microbatch cut + chunked CE.
+    "opt3": {
+        "nemotron-4-340b": {"tag": "opt3", "microbatches": 2, "remat": "block", "loss_chunk": 512},
+        "rwkv6-3b": {"tag": "opt3", "microbatches": 1, "remat": "block", "loss_chunk": 512, "zero_stage": 1},
+        "mixtral-8x7b": {"tag": "opt3", "microbatches": 2, "remat": "block", "loss_chunk": 512},
+    },
+    # opt4 (rwkv6 only): the arch is attention-free and fits per device —
+    # tensor parallelism is pure overhead.  Pure 256-way DP (batch over both
+    # mesh axes), ZeRO-1 params, sharded moments: the model-axis collectives
+    # disappear; only the gradient all-reduce remains.
+    "opt4": {
+        "rwkv6-3b": {"tag": "opt4", "microbatches": 1, "remat": "block",
+                      "loss_chunk": 512, "zero_stage": 1,
+                      "model_axis": "none", "fsdp_axes": ["data", "model"]},
+        "nemotron-4-340b": {"tag": "opt4", "microbatches": 2, "remat": "block", "loss_chunk": 512},
+        "mixtral-8x7b": {"tag": "opt4", "microbatches": 2, "remat": "block", "loss_chunk": 512},
+    },
+}
+
+
+def hillclimb_variant(name: str, arch_name: str) -> dict:
+    """The variant dict one hill-climb cell takes (JAX's lookup: per arch
+    where the variant names archs, else the variant itself)."""
+    v = HILLCLIMB_VARIANTS[name]
+    return dict(v[arch_name] if arch_name in v else v)
 
 
 def batch_shapes(arch: ArchConfig, shape: ShapeConfig) -> Dict[str, torch.Tensor]:
@@ -360,18 +431,41 @@ def cell_state_bytes(arch: ArchConfig, shape: ShapeConfig, rules: ShardingRules)
     return params + cache, cache
 
 
-def _run_cell(arch, shape, mesh, rmesh, *, microbatches, device: DeviceLike = "cuda") -> CellRun:
+def cell_rules(arch: ArchConfig, mesh, variant: Optional[dict] = None) -> ShardingRules:
+    """The cell's ``ShardingRules`` under ``variant``'s sharding knobs, as
+    JAX's ``_lower_cell`` builds them."""
+    variant = variant or {}
+    fsdp = variant.get("fsdp_axes")
+    return ShardingRules(arch, mesh_axis_sizes(mesh), zero_stage=variant.get("zero_stage", 3),
+                         model_axis=variant.get("model_axis", "model"),
+                         fsdp_axes=tuple(fsdp) if fsdp else None)
+
+
+def cell_microbatches(arch: ArchConfig, shape: ShapeConfig, variant: Optional[dict] = None) -> int:
+    """The cell's microbatch count: the variant's, else ``MICROBATCHES``
+    for a train cell and 1 for the others (JAX's ``run_cell``)."""
+    mb = MICROBATCHES.get(arch.name, 1) if shape.kind == "train" else 1
+    return (variant or {}).get("microbatches", mb)
+
+
+def cell_model(arch: ArchConfig, variant: Optional[dict] = None, **fields):
+    """The cell's model under ``variant``'s ``remat`` and ``loss_chunk``
+    (JAX's ``build_model`` and ``dataclasses.replace``), with ``fields``."""
+    variant = variant or {}
+    return dataclasses.replace(build_model(arch, remat=variant.get("remat", "block")),
+                               loss_chunk=variant.get("loss_chunk"), **fields)
+
+
+def _run_cell(arch, shape, mesh, rmesh, *, microbatches, variant: Optional[dict] = None,
+              device: DeviceLike = "cuda") -> CellRun:
     """Build and run rank 0's step of one cell once, on ``rmesh``
-    (:func:`run_mesh` of ``mesh``)."""
+    (:func:`run_mesh` of ``mesh``), under ``variant``'s knobs."""
     from torch.distributed.tensor.experimental import implicit_replication
 
     dev = resolve_device(device)
     sizes = mesh_axis_sizes(mesh)
-    rules = ShardingRules(arch, sizes)
-    model = dataclasses.replace(
-        build_model(arch),
-        logits_sharding=lambda ndim: placements(rules.logits_spec(ndim), rmesh),
-    )
+    rules = cell_rules(arch, sizes, variant)
+    model = cell_model(arch, variant, logits_sharding=lambda ndim: placements(rules.logits_spec(ndim), rmesh))
     params_shapes = model.init_shapes()
     param_specs = rules.params_specs(params_shapes)
     params = _zero_shards(param_specs, params_shapes, sizes, rmesh, dev)
@@ -452,46 +546,73 @@ def card_info() -> Dict[str, Any]:
     return {"name": name, "power_limit": limit}
 
 
+def record_path(arch_name: str, shape_name: str, mesh_kind: str, variant: Optional[dict] = None) -> Path:
+    """Where a cell's record goes: ``{arch}__{shape}__{mesh}.json``, with
+    ``__{tag}`` before the suffix for a variant that has a tag (JAX's
+    name)."""
+    tag = f"__{variant['tag']}" if variant and variant.get("tag") else ""
+    return RESULTS_DIR / f"{arch_name}__{shape_name}__{mesh_kind}{tag}.json"
+
+
 def run_cell(arch_name: str, shape_name: str, mesh_kind: str, *, link_bw: float,
              force: bool = False, skip_calibration: bool = False,
-             device: DeviceLike = "cuda") -> dict:
-    """Dry-run one cell on the fake production mesh and write its record
-    (or read the record a previous run wrote, unless ``force``)."""
+             device: DeviceLike = "cuda", variant: Optional[dict] = None) -> dict:
+    """Dry-run one cell on the fake production mesh under ``variant`` and
+    write its record (or read the record a previous run wrote, unless
+    ``force``)."""
     RESULTS_DIR.mkdir(parents=True, exist_ok=True)
-    out_path = RESULTS_DIR / f"{arch_name}__{shape_name}__{mesh_kind}.json"
+    out_path = record_path(arch_name, shape_name, mesh_kind, variant)
     if out_path.exists() and not force:
         return json.loads(out_path.read_text())
     arch, shape = get_arch(arch_name), SHAPES[shape_name]
     dev = resolve_device(device)
     mesh = fake_production_mesh(multi_pod=(mesh_kind == "multi"), device=dev)
-    record = dryrun_cell(arch, shape, mesh, mesh_kind=mesh_kind,
-                         link_bw=link_bw, skip_calibration=skip_calibration, device=dev)
+    record = dryrun_cell(arch, shape, mesh, mesh_kind=mesh_kind, link_bw=link_bw,
+                         skip_calibration=skip_calibration, device=dev, variant=variant)
     out_path.write_text(json.dumps(record, indent=1))
     return record
 
 
 def dryrun_cell(arch: ArchConfig, shape: ShapeConfig, mesh, *, mesh_kind: str, link_bw: float,
-                skip_calibration: bool = False, microbatches: Optional[int] = None,
-                device: DeviceLike = "cuda") -> dict:
+                skip_calibration: bool = False, device: DeviceLike = "cuda",
+                variant: Optional[dict] = None) -> dict:
     """The record of one cell on ``mesh`` (a named DeviceMesh over an
-    initialised, usually fake, default process group).  A train cell takes
-    ``MICROBATCHES``, any cell ``microbatches`` when it is given (the
-    record's ``variant`` then says so, as JAX's does)."""
+    initialised, usually fake, default process group) under ``variant``
+    (JAX's dict; the record keeps it).  A train cell takes
+    ``MICROBATCHES``, any cell the variant's ``microbatches`` when it has
+    them.  A production run that runs out of the card's memory gives a
+    record that is not ``ok`` (:func:`_out_of_memory_record`)."""
     dev = resolve_device(device)
     mesh_shape = mesh_axis_sizes(mesh)
     chips = mesh.size()
-    variant = {} if microbatches is None else {"microbatches": microbatches}
-    mb = MICROBATCHES.get(arch.name, 1) if shape.kind == "train" else 1
-    mb = mb if microbatches is None else microbatches
-    rmesh = run_mesh(mesh, ShardingRules(arch, mesh_shape))
+    variant = dict(variant or {})
+    mb = cell_microbatches(arch, shape, variant)
+    rules = cell_rules(arch, mesh_shape, variant)
+    rmesh = run_mesh(mesh, rules)
 
     # -- 1) production run: the coherence + memory proof ---------------------
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
         torch.cuda.reset_peak_memory_stats(dev)
         base_allocated = torch.cuda.memory_allocated(dev)
+        _watch_out_of_memory()
     t0 = time.perf_counter()
-    prod = _run_cell(arch, shape, mesh, rmesh, microbatches=mb, device=dev)
+    failed = None
+    try:
+        prod = _run_cell(arch, shape, mesh, rmesh, microbatches=mb, variant=variant, device=dev)
+    except torch.OutOfMemoryError as e:
+        failed = {"error": (str(e).splitlines() or [type(e).__name__])[0]}
+        if dev.type == "cuda":
+            failed.update(allocated_bytes=torch.cuda.memory_allocated(dev) - base_allocated,
+                          peak_allocated_bytes=torch.cuda.max_memory_allocated(dev) - base_allocated,
+                          **_LAST_OUT_OF_MEMORY)
+            _LAST_OUT_OF_MEMORY.clear()
+    if failed is not None:  # the failed run's tensors are freed once its traceback is
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        return _out_of_memory_record(arch, shape, rules, mesh_kind=mesh_kind, chips=chips, mb=mb,
+                                     link_bw=link_bw, variant=variant, dev=dev, failed=failed,
+                                     seconds=time.perf_counter() - t0)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t_run = time.perf_counter() - t0
@@ -503,38 +624,24 @@ def dryrun_cell(arch: ArchConfig, shape: ShapeConfig, mesh, *, mesh_kind: str, l
 
     # -- 2) collective calibration: depths L0 < L1 ------------------------------
     t0 = time.perf_counter()
-    if skip_calibration:
+    calibration_failed = None
+    if not skip_calibration:
+        try:
+            coll_stats, per_axis, coll_note = _calibrate(arch, shape, mesh, rmesh, mb, variant, dev, mesh_shape)
+        except torch.OutOfMemoryError as e:
+            calibration_failed = (str(e).splitlines() or [type(e).__name__])[0]
+    if skip_calibration or calibration_failed:
+        # the production run traced every layer at the cell's microbatches
         coll_stats = prod_stats
         per_axis = prod_per_axis
         coll_note = "production-run counts (every layer traced)"
-    else:
-        # Collective bytes/counts are F(L, m) = a + b*L + c*m + d*L*m
-        # (per-layer-per-microbatch weight gathers, per-layer activation
-        # reductions, per-microbatch top-level terms, constants): four runs
-        # at (L0,1),(L1,1),(L0,2),(L1,2) determine the coefficients exactly;
-        # prefill/decode cells use the depth-only linear model (two runs).
-        L0, L1, _, _ = _calib_depths(arch)
-        mbs = (1, 2) if (shape.kind == "train" and mb > 1) else (1,)
-        meas, ax_meas = {}, {}
-        for m_i in mbs:
-            for L in (L0, L1):
-                sub = dataclasses.replace(arch, n_layers=L)
-                run = _run_cell(sub, shape, mesh, rmesh, microbatches=m_i, device=dev)
-                meas[(L, m_i)] = run.trace.stats()
-                ax_meas[(L, m_i)] = per_axis_collectives(run.trace, run.rmesh, mesh_shape)
-        Lf = arch.n_layers
-        fit = lambda table, get: bilinear({k: get(v) for k, v in table.items()}, L0, L1, Lf, mb)
-        coll_stats = {
-            key: {field: fit(meas, lambda s, k=key, f=field: s[k][f]) for field in ("bytes", "count")}
-            for key in meas[(L0, 1)]
-        }
-        axes = set().union(*ax_meas.values())
-        per_axis = {
-            ax: {field: fit(ax_meas, lambda s, a=ax, f=field: s.get(a, {}).get(f, 0.0))
-                 for field in ("bytes", "count")}
-            for ax in sorted(axes)
-        }
-        coll_note = f"bilinear calibration: depths {L0},{L1} x microbatches {list(mbs)}"
+        if calibration_failed:
+            # a calibration run at 1 microbatch holds twice the rows of a
+            # production microbatch at 2 or more, and may not fit where the
+            # cell does
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+            coll_note += f"; the calibration ran out of memory: {calibration_failed}"
     t_calib = time.perf_counter() - t0
     coll_bytes = roofline.total_collective_bytes(coll_stats)
 
@@ -574,11 +681,106 @@ def dryrun_cell(arch: ArchConfig, shape: ShapeConfig, mesh, *, mesh_kind: str, l
         per_axis_collectives=per_axis,
         flops_breakdown=cost.breakdown,
         variant=variant,
+        calibration_out_of_memory=calibration_failed,
         device=str(dev),
         card=card_info(),
         torch=torch.__version__,
         checks=checks,
         ok=not checks,
+    )
+    return record
+
+
+# What the allocator's out-of-memory observer saw last: the request that
+# failed and the bytes allocated on the device then.
+_LAST_OUT_OF_MEMORY: Dict[str, int] = {}
+_watching = False
+
+
+def _watch_out_of_memory() -> None:
+    """Have the CUDA allocator report its out-of-memory errors into
+    ``_LAST_OUT_OF_MEMORY`` (once per process)."""
+    global _watching
+    if _watching:
+        return
+
+    def seen(device, alloc, device_alloc, device_free):
+        _LAST_OUT_OF_MEMORY.update(request_bytes=int(alloc), device_allocated_bytes=int(device_alloc),
+                                   device_free_bytes=int(device_free))
+
+    torch._C._cuda_attach_out_of_memory_observer(seen)
+    _watching = True
+
+
+def _calibrate(arch, shape, mesh, rmesh, mb, variant, dev, mesh_shape):
+    """(collective stats, per-axis collectives, note) of the cell at its
+    full depth and ``mb`` microbatches from calibration runs.
+
+    Collective bytes/counts are F(L, m) = a + b*L + c*m + d*L*m
+    (per-layer-per-microbatch weight gathers, per-layer activation
+    reductions, per-microbatch top-level terms, constants): four runs at
+    (L0,1),(L1,1),(L0,2),(L1,2) determine the coefficients exactly;
+    prefill/decode cells use the depth-only linear model (two runs)."""
+    L0, L1, _, _ = _calib_depths(arch)
+    mbs = (1, 2) if (shape.kind == "train" and mb > 1) else (1,)
+    meas, ax_meas = {}, {}
+    for m_i in mbs:
+        for L in (L0, L1):
+            sub = dataclasses.replace(arch, n_layers=L)
+            run = _run_cell(sub, shape, mesh, rmesh, microbatches=m_i, variant=variant, device=dev)
+            meas[(L, m_i)] = run.trace.stats()
+            ax_meas[(L, m_i)] = per_axis_collectives(run.trace, run.rmesh, mesh_shape)
+    Lf = arch.n_layers
+    fit = lambda table, get: bilinear({k: get(v) for k, v in table.items()}, L0, L1, Lf, mb)
+    coll_stats = {
+        key: {field: fit(meas, lambda s, k=key, f=field: s[k][f]) for field in ("bytes", "count")}
+        for key in meas[(L0, 1)]
+    }
+    axes = set().union(*ax_meas.values())
+    per_axis = {
+        ax: {field: fit(ax_meas, lambda s, a=ax, f=field: s.get(a, {}).get(f, 0.0))
+             for field in ("bytes", "count")}
+        for ax in sorted(axes)
+    }
+    return coll_stats, per_axis, f"bilinear calibration: depths {L0},{L1} x microbatches {list(mbs)}"
+
+
+def _out_of_memory_record(arch, shape, rules, *, mesh_kind, chips, mb, link_bw, variant, dev, failed,
+                          seconds) -> dict:
+    """The record of a cell whose production run ran out of memory: what
+    needs no run (the state bytes from the specs, the analytic terms), the
+    failure, ``ok`` false and the collective figures null."""
+    state_bytes, cache_bytes = cell_state_bytes(arch, shape, rules)
+    params_shapes = build_model(arch).init_shapes()
+    cost = analytic.cell_cost(arch, shape, roofline.matmul_param_count(params_shapes),
+                              cache_bytes=cache_bytes * chips, microbatches=mb)
+    report = roofline.RooflineReport(
+        arch=arch.name, shape=shape.name, mesh=mesh_kind, chips=chips,
+        hlo_flops=cost.flops_compiled / chips, hlo_bytes=cost.bytes_hbm / chips,
+        collective_bytes=0.0, collectives={}, model_flops=cost.flops_useful, link_bw=link_bw,
+        bytes_per_device=state_bytes, notes=f"microbatches={mb}; out of memory: no collectives traced",
+    )
+    record = report.to_json()
+    for key in ("collective_bytes", "collectives", "collective_term", "bottleneck", "roofline_fraction"):
+        record[key] = None
+    record.update(
+        lower_seconds=round(seconds, 1),
+        compile_seconds=None,
+        memory_analysis={"state_bytes": state_bytes, "shard_bytes_allocated": None, **failed},
+        out_of_memory=failed,
+        flop_counter=None,
+        production_collectives=None,
+        production_per_axis_collectives=None,
+        view_replications=None,
+        param_gathers=None,
+        per_axis_collectives=None,
+        flops_breakdown=cost.breakdown,
+        variant=variant,
+        device=str(dev),
+        card=card_info(),
+        torch=torch.__version__,
+        checks=[f"out of memory: {failed['error']}"],
+        ok=False,
     )
     return record
 
@@ -610,6 +812,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--link-bw", type=float, required=True,
                     help="bytes per second of one link, the collective term's rate")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--variant", type=json.loads, default=None, metavar="JSON",
+                    help="a variant dict, as tools/perf_hillclimb.py gives run_cell one")
     args = ap.parse_args(argv)
 
     meshes = ["single", "multi"] if args.mesh == "both" else [args.mesh]
@@ -622,21 +826,24 @@ def main(argv: Optional[List[str]] = None) -> int:
         return _fan_out(args, jobs, meshes)
     if not (args.arch and args.shape):
         ap.error("--arch and --shape are required without --all")
+    if args.variant is not None and not isinstance(args.variant, dict):
+        ap.error("--variant must be a JSON object")
     tag = f"{args.arch} x {args.shape} x {meshes[0]}"
     try:
         rec = run_cell(
             args.arch, args.shape, meshes[0], link_bw=args.link_bw,
             force=args.force, skip_calibration=args.skip_calibration,
-            device=args.device,
+            device=args.device, variant=args.variant,
         )
     except Exception as e:  # the CLI's boundary: report the cell, exit non-zero
         traceback.print_exc()
         print(f"[FAIL] {tag}: {e}", flush=True)
         return 1
     peak = rec["memory_analysis"].get("peak_allocated_bytes")
+    coll = "-" if rec["collective_bytes"] is None else f"{rec['collective_bytes']:.3e}"
     print(
         f"[{'OK' if rec['ok'] else 'FAIL'}] {tag}: flops/dev={rec['hlo_flops']:.3e} "
-        f"bytes/dev={rec['hlo_bytes']:.3e} coll={rec['collective_bytes']:.3e} "
+        f"bytes/dev={rec['hlo_bytes']:.3e} coll={coll} "
         f"bottleneck={rec['bottleneck']} state_bytes={rec['bytes_per_device']:.0f} "
         f"peak_allocated={peak} (run {rec['lower_seconds']}s, calibration {rec['compile_seconds']}s)"
         + "".join(f"; {c}" for c in rec["checks"]),
@@ -659,11 +866,12 @@ def _fan_out(args, jobs, meshes) -> int:
                    "--device", args.device]
             cmd += ["--force"] if args.force else []
             cmd += ["--skip-calibration"] if args.skip_calibration else []
+            cmd += ["--variant", json.dumps(args.variant)] if args.variant is not None else []
             t0, started = time.perf_counter(), time.time()
             rc = subprocess.run(cmd).returncode
             wall = round(time.perf_counter() - t0, 1)
             print(f"[child] {arch_name} x {shape_name} x {m}: exit {rc} after {wall} s", flush=True)
-            path = RESULTS_DIR / f"{arch_name}__{shape_name}__{m}.json"
+            path = record_path(arch_name, shape_name, m, args.variant)
             if path.exists() and path.stat().st_mtime >= started:  # this child's record
                 rec = json.loads(path.read_text())
                 path.write_text(json.dumps({**rec, "child_seconds": wall}, indent=1))

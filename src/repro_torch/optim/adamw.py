@@ -14,10 +14,16 @@ leaf is gigabytes (zamba2-2.7b's ``in_proj`` has 1.44 B elements), so the
 elementwise update runs over flat spans of at most ``SPAN`` elements of each
 leaf, which gives the same numbers with temporaries of one span.
 
-DTensor leaves (the dry-run) are updated on their local shards, which must
-have the same placements for a parameter, its gradient and its moments;
-the global norm sums each shard's squares and all-reduces them over the
-mesh dimensions that shard the leaf.
+DTensor leaves (the dry-run) are updated on their local shards; the global
+norm sums each shard's squares and all-reduces them over the mesh
+dimensions that shard the leaf.  A parameter and its gradient share
+placements, and so do its moments.  Where they differ, the moments must
+shard what the parameter replicates (ZeRO-1: the parameter replicated over
+the fsdp axes, its moments sharded there), and the update does what XLA
+does for JAX's ZeRO-1: it takes the gradient and the parameter at the
+moments' shard by a local slice, with no collective, updates that piece
+and the moment shards, and all-gathers the pieces into the replicated
+parameter (one all-gather per parameter per step).
 """
 
 from __future__ import annotations
@@ -106,6 +112,29 @@ def _sum_squares(g: torch.Tensor) -> torch.Tensor:
     return total
 
 
+def _local_box(t) -> Tuple[Tuple[int, int], ...]:
+    """(offset, size) in each dimension of the DTensor ``t``'s local shard
+    within the global tensor."""
+    from repro_torch.models.layers import shard_index
+
+    return tuple((index * size, size) for index, size in (shard_index(t, d) for d in range(t.dim())))
+
+
+def _zero1_slices(p, m, path) -> Tuple[slice, ...]:
+    """The slices of ``p``'s local shard that ``m``'s local shard covers,
+    where ``m`` shards over mesh dimensions that replicate ``p``."""
+    for pl_p, pl_m in zip(p.placements, m.placements):
+        if pl_p != pl_m and not (pl_p.is_replicate() and pl_m.is_shard()):
+            raise ValueError(f"{path}: the moments' placements {m.placements} do not shard what the "
+                             f"parameter's {p.placements} replicate")
+    out = []
+    for (p_off, p_size), (m_off, m_size) in zip(_local_box(p), _local_box(m)):
+        if not p_off <= m_off <= m_off + m_size <= p_off + p_size:
+            raise ValueError(f"{path}: the moments' shard is not within the parameter's local shard")
+        out.append(slice(m_off - p_off, m_off - p_off + m_size))
+    return tuple(out)
+
+
 def global_norm(grads: PyTree) -> torch.Tensor:
     """sqrt of the sum of float32 squares over every leaf."""
     total = None
@@ -127,7 +156,9 @@ def update(
     cfg: AdamWConfig, grads: PyTree, state: AdamWState, params: PyTree
 ) -> Tuple[PyTree, AdamWState, Dict[str, torch.Tensor]]:
     """One AdamW step.  ``params``, ``state.m`` and ``state.v`` are updated
-    in place and returned; ``grads`` is only read."""
+    in place and returned; ``grads`` is only read.  DTensor leaves are
+    updated on their local shards, a ZeRO-1 parameter on the piece its
+    moments' shards cover, then all-gathered (see the module's note)."""
     step = state.step + 1
     gnorm = global_norm(grads)
     scale = None
@@ -144,11 +175,17 @@ def update(
                                   tree.leaves(state.v), strict=True):
         if g.shape != p.shape:
             raise ValueError(f"{path}: gradient shape {tuple(g.shape)} != parameter {tuple(p.shape)}")
+        gathered = None  # a ZeRO-1 parameter: (the DTensor, the piece of it updated here)
         if hasattr(p, "placements"):
-            if not all(getattr(t, "placements", None) == p.placements for t in (g, m, v)):
-                raise ValueError(f"{path}: a DTensor update needs one placement for the "
-                                 "parameter, its gradient and its moments")
-            p, g, m, v = (_local(t) for t in (p, g, m, v))
+            if getattr(g, "placements", None) != p.placements or getattr(v, "placements", None) != m.placements:
+                raise ValueError(f"{path}: a DTensor update needs the gradient placed as the "
+                                 "parameter and the two moments placed alike")
+            if m.placements == p.placements:
+                p, g, m, v = (_local(t) for t in (p, g, m, v))
+            else:
+                cut = _zero1_slices(p, m, path)
+                gathered = (p, _local(p)[cut].contiguous(), m.placements)
+                p, g, m, v = gathered[1], _local(g)[cut], _local(m), _local(v)
         if not (p.is_contiguous() and m.is_contiguous() and v.is_contiguous()):
             raise ValueError(f"{path}: the in-place update needs contiguous parameters and moments")
         decay = bool(cfg.weight_decay) and decayed(path, p)
@@ -161,5 +198,12 @@ def update(
             if decay:
                 delta.add_(pf, alpha=cfg.weight_decay)
             ps.copy_(pf.sub_(delta.mul_(lr)))
+        if gathered is not None:
+            from torch.distributed.tensor import DTensor
+
+            whole, piece, pieces = gathered
+            new = DTensor.from_local(piece, whole.device_mesh, pieces, run_check=False,
+                                     shape=whole.shape, stride=whole.stride())
+            _local(whole).copy_(new.redistribute(whole.device_mesh, whole.placements).to_local())
     metrics = {"grad_norm": gnorm, "lr": lr}
     return params, AdamWState(step, state.m, state.v), metrics

@@ -1,5 +1,6 @@
-"""Audit of the port's boundary: ``repro_torch`` and ``chip_smoke.py`` import
-neither JAX nor anything of the JAX package ``repro``."""
+"""Audit of the port's boundary: ``repro_torch``, ``chip_smoke.py`` and the
+port's hill-climb (``tools/perf_hillclimb.py``) import neither JAX nor
+anything of the JAX package ``repro``."""
 
 import ast
 import os
@@ -18,7 +19,7 @@ FORBIDDEN_ROOTS = {"jax", "jaxlib", "repro"}
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "tools" / "perf_hillclimb.py"]
 
 
 def _imported_roots(path):

@@ -164,11 +164,17 @@ def test_flash_kernel_without_causal_mask_matches_plain_version(cuda, window, dt
 
 
 def test_flash_kernel_routes_by_dtype(cuda):
-    """float32 takes head dims up to 128 (hd 192 raises) and tiles on its
-    own, so blk_q 256 runs on the split-TF32 kernel; bf16 takes both."""
+    """float32 takes hd 192 (one K/V stage, Q split per k-step group) on
+    the split-TF32 kernel, within the float32 tolerance of the plain
+    version, and tiles on its own, so blk_q 256 runs on the split-TF32
+    kernel; bf16 takes both."""
     q, k, v = _inputs((1, 256, 4, 2, 192), torch.float32)
-    with pytest.raises(NotImplementedError):
-        ops.flash_attention(q, k, v)
+    before = ops.tf32_launches
+    got = ops.flash_attention(q, k, v)
+    assert ops.tf32_launches == before + 1
+    want = ref.attention_reference(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                   causal=True).transpose(1, 2)
+    torch.testing.assert_close(got, want, atol=TOL[torch.float32], rtol=TOL[torch.float32])
     q, k, v = _inputs((1, 256, 4, 2, 64), torch.float32)
     before = (ops.tensor_core_launches, ops.tf32_launches)
     ops.flash_attention(q, k, v, blk_q=256)
@@ -780,7 +786,7 @@ dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=8)
 mesh = init_device_mesh("cuda", (2, 4), mesh_dim_names=("data", "model"))
 for name in sys.argv[1].split(","):
     rec = dryrun.dryrun_cell(get_arch(name).reduced(), ShapeConfig("train", 16, 4, "train"), mesh,
-                             mesh_kind="reduced", link_bw=50e9, device="cuda", microbatches=2,
+                             mesh_kind="reduced", link_bw=50e9, device="cuda", variant={"microbatches": 2},
                              skip_calibration=True)
     print(json.dumps({"arch": name, "ok": rec["ok"], "replications": rec["view_replications"]}), flush=True)
 """

@@ -140,7 +140,7 @@ CELL_PROG = textwrap.dedent(
     dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=data * model)
     mesh = init_device_mesh("cpu", (data, model), mesh_dim_names=("data", "model"))
     rec = dryrun.dryrun_cell(get_arch("granite-3-8b").reduced(), ShapeConfig("cell", seq, batch, kind), mesh,
-                             mesh_kind="test", link_bw=50e9, device="cpu", microbatches=mb)
+                             mesh_kind="test", link_bw=50e9, device="cpu", variant={"microbatches": mb})
     print(json.dumps(rec))
     """
 )

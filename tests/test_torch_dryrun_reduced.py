@@ -88,7 +88,7 @@ SWEEP_PROG = textwrap.dedent(
             try:
                 rec = dryrun.dryrun_cell(get_arch(name).reduced(), ShapeConfig(kind, seq, batch, kind), mesh,
                                          mesh_kind="reduced", link_bw=50e9, device="cpu",
-                                         microbatches=2 if kind == "train" else None)
+                                         variant={"microbatches": 2} if kind == "train" else None)
             except Exception as e:  # recorded per cell; the test decides
                 print(json.dumps({"arch": name, "kind": kind, "error": f"{type(e).__name__}: {e}"}), flush=True)
                 continue

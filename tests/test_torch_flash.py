@@ -91,6 +91,18 @@ def test_every_config_head_dim_is_taken_by_the_bf16_kernel(name, reduced):
     assert cfg.resolved_head_dim in ops.HEAD_DIMS[torch.bfloat16]
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("reduced", [False, True])
+@pytest.mark.parametrize("name", sorted(all_archs()))
+def test_every_config_head_dim_is_taken_by_both_kernels(name, reduced, dtype):
+    """Each kernel takes the head dim of every config, full width or
+    reduced: the float32 one too (nemotron-4-340b's 192 included), so no
+    config's float32 attention is refused on the card."""
+    cfg = all_archs()[name]
+    cfg = cfg.reduced() if reduced else cfg
+    assert cfg.resolved_head_dim in ops.HEAD_DIMS[dtype]
+
+
 @pytest.mark.parametrize("window", [32, 96, 1024])
 def test_flash_attention_sliding_window(window):
     jax_in, torch_in = _inputs(1, 1, 256, 4, 2, 32, jnp.float32)

@@ -5,7 +5,7 @@ on one CUDA card.
     python3 tools/moe_routing_probe.py [--layers 16]
 
 For mixtral-8x7b and phi3.5-moe-42b-a6.6b at full width with ``--layers`` of
-their 32 layers in bf16 (the depth ``chip_smoke.py`` phase 4 profiles), runs
+their 32 layers in bf16 (16 by default; ``chip_smoke.py`` phase 4 profiles 8), runs
 the serve launcher's prefill/decode check without its gate on 8 x 512-token
 prompts: the teacher-forced decode, then the prompt forward through the
 kernels at the no-drop capacity (``serve.prompt_forward``; in bf16 it keeps
