@@ -23,6 +23,7 @@ from typing import Dict, Optional, Tuple, Union
 import torch
 import torch.nn.functional as F
 
+from repro_torch import obs
 from repro_torch.configs.base import ArchConfig
 
 Params = Dict[str, torch.Tensor]
@@ -158,8 +159,9 @@ def qkv_project(p: Params, x: torch.Tensor, cfg: ArchConfig, positions: torch.Te
         q = q + p["bq"]
         k = k + p["bk"]
         v = v + p["bv"]
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    with obs.trace("model.rope"):
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
@@ -406,23 +408,25 @@ def run_attention(
     positions: torch.Tensor,
     impl: str = "torch",
 ) -> torch.Tensor:
-    """Full attention sublayer for train/prefill; ``impl="kernel"`` runs
-    the flash kernel."""
-    q, k, v = qkv_project(p, x, cfg, positions)
-    if hasattr(q, "placements"):  # DTensors (the dry-run)
-        banded = cfg.sliding_window is not None and x.shape[1] > cfg.sliding_window
-        ctx = attention_on_shards(attention_banded if banded else attention_torch, q, k, v, cfg)
-    elif cfg.sliding_window is not None and x.shape[1] > cfg.sliding_window:
-        ctx = attention_banded(q, k, v, cfg)
-    elif impl == "kernel":
-        from repro_torch.kernels.attention import ops as flash_ops
+    """Full attention sublayer for train/prefill (the ``model.attention``
+    span, ``model.rope`` inside it); ``impl="kernel"`` runs the flash
+    kernel."""
+    with obs.trace("model.attention"):
+        q, k, v = qkv_project(p, x, cfg, positions)
+        if hasattr(q, "placements"):  # DTensors (the dry-run)
+            banded = cfg.sliding_window is not None and x.shape[1] > cfg.sliding_window
+            ctx = attention_on_shards(attention_banded if banded else attention_torch, q, k, v, cfg)
+        elif cfg.sliding_window is not None and x.shape[1] > cfg.sliding_window:
+            ctx = attention_banded(q, k, v, cfg)
+        elif impl == "kernel":
+            from repro_torch.kernels.attention import ops as flash_ops
 
-        ctx = flash_ops.flash_attention(q, k, v, causal=True, window=cfg.sliding_window)
-    elif impl == "torch":
-        ctx = attention_torch(q, k, v, cfg)
-    else:
-        raise ValueError(f"unknown attention impl {impl!r} (torch | kernel)")
-    return attention_output(p, ctx)
+            ctx = flash_ops.flash_attention(q, k, v, causal=True, window=cfg.sliding_window)
+        elif impl == "torch":
+            ctx = attention_torch(q, k, v, cfg)
+        else:
+            raise ValueError(f"unknown attention impl {impl!r} (torch | kernel)")
+        return attention_output(p, ctx)
 
 
 def run_attention_decode(

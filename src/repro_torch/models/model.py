@@ -22,6 +22,7 @@ from typing import Any, Callable, Dict, Optional
 import torch
 import torch.utils.checkpoint
 
+from repro_torch import obs
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike, resolve_device
 from . import rwkv_lm, transformer, zamba
@@ -163,7 +164,8 @@ class Model:
         logits, aux = self.forward(params, batch)
         logits = self._constrain(logits)
         (lo, hi), targets = self._targets_and_hidden_slice(batch, logits.shape[1])
-        ce = cross_entropy(_positions(logits, lo, hi), targets)
+        with obs.trace("model.loss"):
+            ce = cross_entropy(_positions(logits, lo, hi), targets)
         return self._with_aux(ce, aux)
 
     def _chunked_loss(self, params: PyTree, batch: Dict[str, torch.Tensor]):
@@ -181,7 +183,8 @@ class Model:
 
         def head_ce(h_c, t_c):
             logits = self._constrain(transformer.logits_from_hidden(params, self.cfg, h_c))
-            return _token_ce(logits, t_c).sum()
+            with obs.trace("model.loss"):
+                return _token_ce(logits, t_c).sum()
 
         if torch.is_grad_enabled():
             chunk_ce = lambda h_c, t_c: torch.utils.checkpoint.checkpoint(

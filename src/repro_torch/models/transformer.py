@@ -29,7 +29,7 @@ from typing import Any, Callable, Dict, List, Tuple
 import torch
 import torch.utils.checkpoint
 
-from repro_torch import tree
+from repro_torch import obs, tree
 from repro_torch.configs.base import ArchConfig
 from . import moe as moe_lib
 from .layers import (
@@ -230,10 +230,20 @@ def init_block(gen: torch.Generator, cfg: ArchConfig, device, lead=()) -> PyTree
 
 
 def _ffn(p: PyTree, h: torch.Tensor, cfg: ArchConfig) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """The block's MLP, or its MoE layer with the layer's aux metrics."""
+    """The block's MLP, or its MoE layer with the layer's aux metrics (the
+    ``model.mlp`` or ``model.moe`` span)."""
     if cfg.moe is not None:
-        return moe_lib.apply_moe(p["moe"], h, cfg)
-    return apply_mlp(p["mlp"], h, cfg), {}
+        with obs.trace("model.moe"):
+            return moe_lib.apply_moe(p["moe"], h, cfg)
+    with obs.trace("model.mlp"):
+        return apply_mlp(p["mlp"], h, cfg), {}
+
+
+def _norm(p: PyTree, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """``apply_norm`` in the ``model.norm`` span (the block's residual adds
+    are ``model.residual``)."""
+    with obs.trace("model.norm"):
+        return apply_norm(p, x, cfg)
 
 
 def apply_block(
@@ -245,15 +255,20 @@ def apply_block(
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     if cfg.parallel_block:
         # Command-R style: one pre-norm, attention and MLP in parallel.
-        h = apply_norm(p["norm_attn"], x, cfg)
+        h = _norm(p["norm_attn"], x, cfg)
         attn_out = run_attention(p["attn"], h, cfg, positions, impl)
         mlp_out, aux = _ffn(p, h, cfg)
-        return x + attn_out + mlp_out, aux
-    h = apply_norm(p["norm_attn"], x, cfg)
-    x = residual(x + run_attention(p["attn"], h, cfg, positions, impl))
-    h = apply_norm(p["norm_mlp"], x, cfg)
+        with obs.trace("model.residual"):
+            return x + attn_out + mlp_out, aux
+    h = _norm(p["norm_attn"], x, cfg)
+    attn_out = run_attention(p["attn"], h, cfg, positions, impl)
+    with obs.trace("model.residual"):
+        x = residual(x + attn_out)
+    del attn_out  # not held through the MLP (a whole activation at the peak)
+    h = _norm(p["norm_mlp"], x, cfg)
     mlp_out, aux = _ffn(p, h, cfg)
-    return x + mlp_out, aux
+    with obs.trace("model.residual"):
+        return x + mlp_out, aux
 
 
 def apply_block_decode(
@@ -304,7 +319,8 @@ def embed_inputs(
     if cfg.frontend == "audio":
         # stub frontend: precomputed EnCodec frame embeddings
         return batch["frame_embeds"].to(dtype)
-    x = lookup(p["embed"], batch["tokens"]).to(dtype)
+    with obs.trace("model.embed"):
+        x = lookup(p["embed"], batch["tokens"]).to(dtype)
     if cfg.frontend == "vlm" and not decode:
         # stub frontend: precomputed InternViT patch embeddings prepended
         # (full forward only: in decode the patches are already in the cache)
@@ -313,10 +329,12 @@ def embed_inputs(
 
 
 def logits_from_hidden(p: PyTree, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
-    if cfg.n_codebooks > 1:
-        return torch.einsum("bsd,qdv->bsqv", h, p["lm_heads"])
-    head = p["embed"].T if cfg.tied_embeddings else p["lm_head"]
-    return h @ head
+    """The head's product (the ``model.head`` span)."""
+    with obs.trace("model.head"):
+        if cfg.n_codebooks > 1:
+            return torch.einsum("bsd,qdv->bsqv", h, p["lm_heads"])
+        head = p["embed"].T if cfg.tied_embeddings else p["lm_head"]
+        return h @ head
 
 
 def forward(
@@ -338,7 +356,7 @@ def forward(
     for layer_p in unstack(p["layers"]):
         x, aux = body(*on_layer(layer_p, x), cfg, positions, impl)
         per_layer.append(aux)
-    x = apply_norm(p["final_norm"], residual(x), cfg)
+    x = _norm(p["final_norm"], residual(x), cfg)
     aux_mean = {k: torch.stack([a[k] for a in per_layer]).mean() for k in per_layer[0]}
     if return_hidden:
         return x, aux_mean

@@ -1,10 +1,11 @@
 """Telemetry of the port (counterpart of ``repro.obs``): tracing, metrics,
 contention attribution and the network passes' dispatch counts.
 
-* :mod:`repro_torch.obs.trace` — the span tracer (off by default; the
-  disabled path is one attribute check), wall-clock timers, Chrome
-  trace-event export, and :data:`DISPATCHES`, the count of each network
-  pass's calls per device type.
+* :mod:`repro_torch.obs.trace` — the span tracer (off by default; a span
+  is a ``torch.profiler`` range while a profiler is active, and a shared
+  no-op while neither is on), wall-clock timers, Chrome trace-event export,
+  and :data:`DISPATCHES`, the count of each network pass's calls per
+  device type.
 * :mod:`repro_torch.obs.metrics` — counters, gauges and histograms with
   labeled series and JSON snapshots; :func:`scheduler_metrics` derives the
   scheduler's metrics from its event log, so a replayed log gives the same
@@ -27,7 +28,6 @@ from typing import Any, Dict, Optional
 
 from repro_torch.obs.trace import DISPATCHES, TRACER, Span, Timer, Tracer, count_dispatch
 from repro_torch.obs.metrics import (
-    REGISTRY,
     Counter,
     Gauge,
     Histogram,
@@ -45,7 +45,6 @@ from repro_torch.obs.contention import (
 
 __all__ = [
     "DISPATCHES",
-    "REGISTRY",
     "TRACER",
     "ContentionReport",
     "Counter",
@@ -59,13 +58,10 @@ __all__ = [
     "Tracer",
     "attribute_contention",
     "attribute_traffic",
-    "clear_telemetry",
     "count_dispatch",
     "disable_tracing",
     "enable_tracing",
     "export_chrome_trace",
-    "metrics_registry",
-    "metrics_snapshot",
     "render_dashboard",
     "scheduler_metrics",
     "timer",
@@ -90,7 +86,9 @@ def tracing_enabled() -> bool:
 
 
 def trace(name: str, **args: Any):
-    """Open a span on the process-wide tracer (no-op while disabled)."""
+    """Open a span on the process-wide tracer: recorded while tracing is
+    on, a ``torch.profiler`` range while a profiler is active, else a
+    shared no-op (:meth:`Tracer.span`)."""
     return TRACER.span(name, **args)
 
 
@@ -103,20 +101,3 @@ def export_chrome_trace(path: Optional[str] = None) -> Dict[str, Any]:
     """The process-wide tracer's Chrome trace object (written to ``path``
     when given)."""
     return TRACER.export(path)
-
-
-def metrics_registry() -> MetricsRegistry:
-    """The process-wide default metrics registry."""
-    return REGISTRY
-
-
-def metrics_snapshot() -> Dict[str, Any]:
-    """JSON-able snapshot of the process-wide metrics registry."""
-    return REGISTRY.snapshot()
-
-
-def clear_telemetry() -> None:
-    """Drop all recorded trace events and metrics series (the dispatch
-    counts are kept: callers reset :data:`DISPATCHES` themselves)."""
-    TRACER.clear()
-    REGISTRY.clear()

@@ -32,7 +32,6 @@ __all__ = [
     "Gauge",
     "Histogram",
     "MetricsRegistry",
-    "REGISTRY",
     "scheduler_metrics",
 ]
 
@@ -202,10 +201,6 @@ class MetricsRegistry:
             with open(path, "w") as fh:
                 json.dump(snap, fh, indent=1)
         return snap
-
-
-#: Process-wide default registry.
-REGISTRY = MetricsRegistry()
 
 
 # ---------------------------------------------------------------------------

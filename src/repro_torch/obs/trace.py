@@ -4,10 +4,21 @@ counts (counterpart of ``repro.obs.trace``).
 The tracer is the port's own copy of ``repro.obs.trace``: one process-wide
 :class:`Tracer` (:data:`TRACER`) records named wall-clock spans with
 key/value annotations, exported as Chrome trace-event JSON (``"X"``
-complete events, loadable in Perfetto).  Tracing is off by default; the
-disabled path is one attribute check, and enabling it never changes a
-result.  The allocation engines emit ``placement.search``,
-``scheduler.step``, ``scheduler.place`` and ``scheduler.scenario``.
+complete events, loadable in Perfetto).  Tracing is off by default, and
+enabling it never changes a result.  The allocation engines emit
+``placement.search``, ``scheduler.step``, ``scheduler.place`` and
+``scheduler.scenario``; the transformer's layers emit ``model.*`` and the
+train step ``train.*`` (``obs.trace``).
+
+A span also opens a ``torch.profiler.record_function`` range of its name
+while a torch profiler is active, so it sits in the profiler's own
+timeline (on the thread that opened it: the autograd engine's, for a
+layer recomputed in the backward pass), whether or not the tracer records.
+With neither on, :meth:`Tracer.span` returns a shared no-op: two flag
+checks.  Spans are stamped on the clock the profiler's events carry
+(``time.time_ns``, the Unix clock), so an exported trace lines up with a
+profiler trace of the same run with no offset; a :class:`Timer` measures
+its ``elapsed`` on the monotonic clock.
 
 PyTorch queues CUDA work asynchronously, so a caller timing card work
 runs ``torch.cuda.synchronize()`` (``repro_torch.device.synchronize``)
@@ -23,6 +34,9 @@ import threading
 import time
 from collections import Counter
 from typing import Any, Dict, List, Optional
+
+from torch._C._autograd import _profiler_enabled
+from torch.autograd.profiler import record_function
 
 __all__ = ["DISPATCHES", "Span", "TRACER", "Timer", "Tracer", "count_dispatch"]
 
@@ -41,17 +55,19 @@ def count_dispatch(name: str, device_type: str) -> None:
 class Span:
     """One live span: a named interval opened by :meth:`Tracer.span`.
 
-    Use as a context manager; :meth:`annotate` attaches key/value pairs
-    and :meth:`incr` accumulates additive counters — both land in the
-    exported event's ``args``."""
+    Use as a context manager; :meth:`annotate` attaches key/value pairs,
+    which land in the exported event's ``args``.  ``tracer`` is None for a
+    span that only opens a profiler range (the tracer off, a profiler
+    active)."""
 
-    __slots__ = ("name", "args", "tid", "_tracer", "_t0", "duration")
+    __slots__ = ("name", "args", "tid", "_tracer", "_range", "_t0", "duration")
 
-    def __init__(self, tracer: "Tracer", name: str, args: Dict[str, Any]):
+    def __init__(self, tracer: Optional["Tracer"], name: str, args: Dict[str, Any]):
         self._tracer = tracer
         self.name = name
         self.args = args
         self.tid = threading.get_ident()
+        self._range = None
         self._t0 = 0
         self.duration = 0.0  # seconds, set at exit
 
@@ -60,19 +76,20 @@ class Span:
         self.args.update(kv)
         return self
 
-    def incr(self, key: str, n: float = 1) -> "Span":
-        """Accumulate an additive counter in the span's args."""
-        self.args[key] = self.args.get(key, 0) + n
-        return self
-
     def __enter__(self) -> "Span":
-        self._t0 = time.perf_counter_ns()
+        if _profiler_enabled():
+            self._range = record_function(self.name)
+            self._range.__enter__()
+        self._t0 = time.time_ns()
         return self
 
     def __exit__(self, exc_type, exc, tb) -> bool:
-        t1 = time.perf_counter_ns()
+        t1 = time.time_ns()
+        if self._range is not None:
+            self._range.__exit__(exc_type, exc, tb)
         self.duration = (t1 - self._t0) * 1e-9
-        self._tracer._record(self, self._t0, t1)
+        if self._tracer is not None:
+            self._tracer._record(self, self._t0, t1)
         return False
 
 
@@ -87,9 +104,6 @@ class _NoopSpan:
     def annotate(self, **kv: Any) -> "_NoopSpan":
         return self
 
-    def incr(self, key: str, n: float = 1) -> "_NoopSpan":
-        return self
-
     def __enter__(self) -> "_NoopSpan":
         return self
 
@@ -102,17 +116,18 @@ _NOOP = _NoopSpan()
 
 class Timer:
     """Always-measuring wall-clock context manager (``obs.timer``):
-    ``elapsed`` holds seconds, and with tracing enabled the interval is
-    also recorded as a span."""
+    ``elapsed`` holds seconds on the monotonic clock, and with tracing
+    enabled the interval is also recorded as a span (stamped on the
+    profiler's clock)."""
 
-    __slots__ = ("name", "args", "elapsed", "_tracer", "_t0")
+    __slots__ = ("name", "args", "elapsed", "_tracer", "_t0", "_stamp")
 
     def __init__(self, tracer: "Tracer", name: str, args: Dict[str, Any]):
         self._tracer = tracer
         self.name = name
         self.args = args
         self.elapsed = 0.0
-        self._t0 = 0
+        self._t0 = self._stamp = 0
 
     def annotate(self, **kv: Any) -> "Timer":
         """Attach key/value annotations (recorded when tracing is on)."""
@@ -120,6 +135,7 @@ class Timer:
         return self
 
     def __enter__(self) -> "Timer":
+        self._stamp = time.time_ns()
         self._t0 = time.perf_counter_ns()
         return self
 
@@ -129,22 +145,22 @@ class Timer:
         if self._tracer.enabled:
             span = Span(self._tracer, self.name, self.args)
             span.duration = self.elapsed
-            self._tracer._record(span, self._t0, t1)
+            self._tracer._record(span, self._stamp, self._stamp + t1 - self._t0)
         return False
 
 
 class Tracer:
     """Thread-safe span recorder exporting Chrome trace-event JSON.
 
-    ``enabled`` is a plain attribute — the single check the disabled
-    path pays.  Finished spans append under a lock as ``"X"`` events
-    with microsecond ``ts``/``dur`` relative to the tracer's epoch."""
+    ``enabled`` is a plain attribute, checked before the profiler's flag
+    on the disabled path.  Finished spans append under a lock as ``"X"``
+    events with microsecond ``ts``/``dur``; ``ts`` is on the Unix clock,
+    as the profiler's event times are (``start_ns() / 1e3``)."""
 
     def __init__(self) -> None:
         self.enabled = False
         self._lock = threading.Lock()
         self._events: List[Dict[str, Any]] = []
-        self._epoch = time.perf_counter_ns()
 
     def enable(self, clear: bool = False) -> None:
         """Turn tracing on (optionally clearing recorded events first)."""
@@ -157,16 +173,18 @@ class Tracer:
         self.enabled = False
 
     def clear(self) -> None:
-        """Drop all recorded events and reset the time epoch."""
+        """Drop all recorded events."""
         with self._lock:
             self._events = []
-            self._epoch = time.perf_counter_ns()
 
     def span(self, name: str, **args: Any):
-        """Open a span (context manager); a shared no-op while disabled."""
-        if not self.enabled:
-            return _NOOP
-        return Span(self, name, args)
+        """Open a span (context manager): recorded while enabled, a profiler
+        range while a torch profiler is active, else a shared no-op."""
+        if self.enabled:
+            return Span(self, name, args)
+        if _profiler_enabled():
+            return Span(None, name, args)
+        return _NOOP
 
     def timer(self, name: str, **args: Any) -> Timer:
         """An always-measuring :class:`Timer` (span recorded only when
@@ -177,7 +195,7 @@ class Tracer:
         event = {
             "name": span.name,
             "ph": "X",
-            "ts": (t0_ns - self._epoch) * 1e-3,  # microseconds
+            "ts": t0_ns * 1e-3,  # microseconds on the Unix clock
             "dur": (t1_ns - t0_ns) * 1e-3,
             "pid": os.getpid(),
             "tid": span.tid,

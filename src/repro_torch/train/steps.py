@@ -18,6 +18,11 @@ opt_state, metrics)``:
   gradients, and the accumulators, to those placements, so that partial
   gradients are reduce-scattered to the parameters' shards (the dry-run).
 
+Each microbatch's forward pass is the ``train.forward`` span and its
+backward pass, block remat's recompute included, ``train.backward``; the
+float32 accumulation is ``train.accumulate`` and the AdamW update
+``train.optimizer`` (``repro_torch.obs``).
+
 The train step takes the model's ``"torch"`` paths, as the JAX trainer takes
 ``attn_impl="xla"``: the hand-written kernels have no backward, so a model
 built with ``impl="kernel"`` is refused.  The eval step is forward only and
@@ -30,7 +35,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
-from repro_torch import tree
+from repro_torch import obs, tree
 from repro_torch.models.model import Model
 from repro_torch.optim import adamw
 
@@ -44,8 +49,10 @@ def _grads(model: Model, params: PyTree, batch: Dict[str, torch.Tensor]
     flat = tree.leaves(params)
     with torch.enable_grad():
         live = [p.detach().requires_grad_() for p in flat]
-        loss, metrics = model.loss(tree.unflatten(params, live), batch)
-        grads = torch.autograd.grad(loss, live)
+        with obs.trace("train.forward"):
+            loss, metrics = model.loss(tree.unflatten(params, live), batch)
+        with obs.trace("train.backward"):
+            grads = torch.autograd.grad(loss, live)
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}, list(grads)
 
 
@@ -114,21 +121,25 @@ def make_train_step(
             grads = _constrain(grads, placements)
         else:
             flat = tree.leaves(params)
-            acc = _constrain([_zeros_f32(p) for p in flat], placements)
-            l_sum = torch.zeros((), dtype=torch.float32, device=flat[0].device)
+            with obs.trace("train.accumulate"):
+                acc = _constrain([_zeros_f32(p) for p in flat], placements)
+                l_sum = torch.zeros((), dtype=torch.float32, device=flat[0].device)
             for i in range(microbatches):
                 loss, _, grads = _grads(model, params, _microbatch(batch, microbatches, i))
                 grads = _constrain(grads, placements)
-                for a, g in zip(acc, grads):
-                    a.add_(g)
+                with obs.trace("train.accumulate"):
+                    for a, g in zip(acc, grads):
+                        a.add_(g)
+                    l_sum = l_sum + loss
                 del grads
-                l_sum = l_sum + loss
-            grads = [a.div_(microbatches) for a in acc]
-            loss = l_sum / microbatches
+            with obs.trace("train.accumulate"):
+                grads = [a.div_(microbatches) for a in acc]
+                loss = l_sum / microbatches
             metrics = {}
-        new_params, new_opt, opt_metrics = adamw.update(
-            opt_cfg, tree.unflatten(params, grads), opt_state, params
-        )
+        with obs.trace("train.optimizer"):
+            new_params, new_opt, opt_metrics = adamw.update(
+                opt_cfg, tree.unflatten(params, grads), opt_state, params
+            )
         return new_params, new_opt, {"loss": loss, **metrics, **opt_metrics}
 
     return train_step

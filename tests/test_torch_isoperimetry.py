@@ -228,7 +228,7 @@ def test_tracer_records_and_exports(tmp_path):
     obs.enable_tracing(clear=True)
     try:
         with obs.trace("outer", k=1) as span:
-            span.annotate(x=2).incr("n").incr("n", 2)
+            span.annotate(x=2).annotate(n=3)
             with obs.timer("inner") as t:
                 pass
     finally:
