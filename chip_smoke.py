@@ -40,7 +40,17 @@ Phases, in order; any failure raises and the script exits non-zero:
    outside the tensor cores is printed beside it.  At their serve shapes
    the scans are held elementwise against their plain version run in
    float64, with the float32 plain version's own error printed beside
-   them.
+   them.  Flash attention's backward (flash_bwd_sm90.cu, its three kernels'
+   registers and spills printed here) runs through
+   ``ops.flash_attention_trainable`` and autograd at granite-3-8b's train
+   call and zamba2-2.7b's hd-80 one: the stats forward's output and
+   log-sum-exp and dq, dk, dv against the float64 plain versions, each
+   gradient within BWD_REL of the float64 one by norm and each row within
+   BWD_ROW of the tensor's root-mean-square row, and neither above 1.1x
+   the distance of autograd through ``layers.attention_torch`` in bf16;
+   one launch of each kernel a call, the same bits from a second call;
+   timed with CUDA events beside its plain version, the forward with and
+   without statistics, PyTorch's fused attention's backward and its bound.
 3. Serve granite-3-8b, zamba2-2.7b and rwkv6-3b at full width and depth,
    and mixtral-8x7b and phi3.5-moe-42b-a6.6b at full width with 8 of their
    32 layers in float32 (MOE_SERVE says why), with random weights (seeded
@@ -76,9 +86,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    after step 0, tokens/s, mfu_6nt (6 N T over the step time and 989
    TFLOP/s; remat's recompute not counted; for mixtral also over the
    parameters active per token), peak memory and its losses, which must be
-   finite.  (c) The eval step through the kernels at full width against
-   the torch paths' eval loss, within 2e-2 + 2e-2 * |want|, with exact
-   launch counts (granite 8 layers: flash 8; zamba2: ssd 54 + flash 9;
+   finite, and its launches of flash attention's stats forward and
+   backward, which must be exact (each attention call of a bf16 model of a
+   head dim the backward takes: the stats forward once, again in block
+   remat's recompute, and the backward once, a microbatch and step).
+   (c) The eval step through the kernels at full width against the torch
+   paths' eval loss, the latter with ``layers.attention_torch`` in place of
+   the flash kernels (which launch nothing there), within 2e-2 + 2e-2 *
+   |want|, with exact launch counts (granite 8 layers: flash 8; zamba2: ssd 54 + flash 9;
    rwkv6: 32; internvl2: 24; musicgen: 48; mixtral, bf16, 16 layers at its
    configured capacity: 16, with its aux loss and drop rate).  (d) A
    checkpoint round trip of (params, optimizer state) on the card, reduced
@@ -213,6 +228,7 @@ and exits non-zero.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import json
@@ -254,6 +270,20 @@ MIXTRAL_ATTN = (8, 512, 32, 8, 128, 128, 128, 4096)  # mixtral's (and phi's) sha
 INTERNVL2_ATTN = (8, 768, 14, 2, 64, 128, 128, None)  # GQA 7:1, 256 patches + 512 tokens
 MUSICGEN_ATTN = (8, 512, 32, 32, 64, 128, 128, None)  # MHA at hd 64
 NEMOTRON_ATTN = (8, 512, 96, 8, 192, 128, 128, None)  # nemotron-4-340b's serve shape, hd 192
+GRANITE_TRAIN_ATTN = (4, 4096, 32, 8, 128)  # granite-3-8b's train call: 8 rows of 4096, 2 microbatches
+ZAMBA_TRAIN_ATTN = (8, 512, 32, 32, 80)  # zamba2-2.7b's shared block in phase 5b's training
+# Flash attention's backward against the float64 gradient: each of dq, dk
+# and dv within BWD_REL by norm (the norm of the difference over the norm),
+# and no further than 1.1x autograd through attention_torch in bf16; each
+# row within BWD_ROW of the larger of its own norm and the root-mean-square
+# row (``gradient_errors``).  On an H100 the kernels read 0.0018-0.0023 by
+# norm (attention_torch 0.0029-0.0049) and by worst row dq 0.026-0.053, dk
+# and dv 0.003-0.011 (attention_torch dq 0.025-0.056), at granite's train
+# call and zamba2's hd-80 one over four seeds; one 128-key tile left out
+# of dq reads 0.40-1.03 by row, a diagonal mask off by one key 156
+# (float64, S = 2048, on the CPU).
+BWD_REL = 3e-3
+BWD_ROW = 0.1
 
 SSD_SWEEP = [  # (B, S, H, P, G, N, chunk), tests/test_kernels.py:110-118
     (1, 64, 2, 16, 1, 8, 16),
@@ -569,6 +599,131 @@ def flash_bound_ms(case, dtype_bytes: int, rate: str = "tensor cores"):
         t_ops = flops / BF16_FLOPS if dtype_bytes == 2 else 3 * flops / TF32_FLOPS
     t_bytes = nbytes / HBM_BYTES_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def flash_bwd_bound_ms(case):
+    """Least time for the causal backward at ``case`` (B, S, H, K, hd), bf16:
+    five products the size of the forward's two, 4*hd flops a causal (q,
+    key) pair each (2.5x the forward's operations), over the bf16 peak,
+    against q, k, v, o, dO, dq, dk and dv once and the float32 log-sum-exp
+    over HBM rate.  Returns (ms, "bytes" | "operations")."""
+    B, S, H, K, hd = case
+    flops = 2.5 * 4 * hd * B * H * (S * (S + 1) // 2)
+    nbytes = 2 * B * S * hd * (4 * H + 4 * K) + 4 * B * H * S
+    t_ops, t_bytes = flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def gradient_errors(grads, exact) -> tuple:
+    """For each of dq, dk, dv against the float64 gradient: the norm of the
+    difference over the norm, and the largest of each row's distance over
+    the larger of its own norm and the tensor's root-mean-square row norm
+    (rows: the head dim)."""
+    rel, row = {}, {}
+    for name, g, e in zip(("dq", "dk", "dv"), grads, exact):
+        d = g.double() - e
+        rel[name] = float(d.norm() / e.norm())
+        rms = e.norm() / (e.numel() / e.shape[-1]) ** 0.5
+        row[name] = float((d.norm(dim=-1) / e.norm(dim=-1).clamp(min=rms)).max())
+    return rel, row
+
+
+def check_flash_backward(torch, case, gen) -> dict:
+    """Flash attention's backward (csrc/flash_bwd_sm90.cu, with the bf16
+    forward's stats variant) through ``ops.flash_attention_trainable`` and
+    autograd at ``case`` (B, S, H, K, hd), bf16: the output, log-sum-exp and
+    dq, dk, dv against the float64 plain versions and beside autograd
+    through ``layers.attention_torch`` in bf16 (BWD_REL, BWD_ROW), one
+    launch of each a call and the same bits from a second call; then
+    timed: ``ms`` by replaying a CUDA graph of calls, ``ms_eager`` by CUDA
+    events over eager calls, ``ms_by_kernel`` from the profiler.  Returns
+    the kernels line's numbers."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.attention import ops, ref
+    from repro_torch.models import layers
+
+    B, S, H, K, hd = case
+    label = f"flash_bwd {case}"
+    q, k, v, dout = (torch.randn(B, S, n, hd, generator=gen, device="cuda").to(torch.bfloat16)
+                     for n in (H, K, K, H))
+
+    def kernel_grads():
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = ops.flash_attention_trainable(*leaves)
+        return out.detach(), torch.autograd.grad(out, leaves, dout)
+
+    before = (ops.stats_launches, ops.backward_launches)
+    out, grads = kernel_grads()
+    launched = (ops.stats_launches - before[0], ops.backward_launches - before[1])
+    if launched != (1, 1):
+        raise RuntimeError(f"{label}: stats forward and backward launches {launched}, expected (1, 1)")
+    if not all(torch.equal(a, b) for a, b in zip(grads, kernel_grads()[1])):
+        raise RuntimeError(f"{label}: a second call gave other gradients")
+    cfg = dataclasses.replace(get_arch("granite-3-8b").reduced(), sliding_window=None)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    torch_grads = torch.autograd.grad(layers.attention_torch(*leaves, cfg), leaves, dout)
+    del leaves
+    torch.cuda.empty_cache()
+    heads = [t.double().transpose(1, 2) for t in (q, k, v)]
+    out64, lse64 = ref.attention_stats_reference(*heads)
+    lse = ops._forward_with_stats(q, k, v)[1]
+    lse_err = float((lse[:, :, :S].double() - lse64).abs().max())
+    exact = [g.transpose(1, 2) for g in ref.attention_backward_reference(
+        *heads, out64, lse64, dout.double().transpose(1, 2), blk=256)]
+    check_close(f"{label} stats forward's output vs float64", out, out64.transpose(1, 2), 2e-2)
+    del heads, out64, lse64, lse
+    rel, row = gradient_errors(grads, exact)
+    torch_rel, torch_row = gradient_errors(torch_grads, exact)
+    max_abs_err = max(float((g.double() - e).abs().max()) for g, e in zip(grads, exact))
+    del exact, torch_grads, grads
+    torch.cuda.empty_cache()
+    print(f"  {label} vs float64: log-sum-exp max |err| {lse_err:.3g}; by norm "
+          f"{', '.join(f'{n} {rel[n]:.4g}' for n in rel)} (attention_torch in bf16: "
+          f"{', '.join(f'{n} {torch_rel[n]:.4g}' for n in rel)}); worst row over its norm or the rms row "
+          f"{', '.join(f'{n} {row[n]:.4g}' for n in row)} (attention_torch: "
+          f"{', '.join(f'{n} {torch_row[n]:.4g}' for n in row)}); max |err| {max_abs_err:.3g}",
+          flush=True)
+    if lse_err > 1e-3:
+        raise RuntimeError(f"{label}: log-sum-exp off by {lse_err}")
+    for n in rel:
+        if not (rel[n] <= BWD_REL and rel[n] <= 1.1 * torch_rel[n] and row[n] <= BWD_ROW):
+            raise RuntimeError(f"{label}: {n} off the float64 gradient by {rel[n]} (norm), "
+                               f"{row[n]} (worst row); attention_torch {torch_rel[n]}, {torch_row[n]}")
+
+    o, lse = ops._forward_with_stats(q, k, v)
+    backward = lambda: ops._backward(q, k, v, o, lse, dout)
+    ms, ms_eager = graph_ms(backward), cuda_ms(backward)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            backward()
+        torch.cuda.synchronize()
+    by_kernel = {}
+    for name, us in device_time_by_kernel(prof).items():
+        m = re.search(r"flash_bwd_(\w+?)_kernel", name)
+        if m:
+            by_kernel[m.group(1)] = by_kernel.get(m.group(1), 0.0) + us / 5 / 1e3
+    heads = [t.transpose(1, 2) for t in (q, k, v, o)]
+    plain_ms = cuda_ms(lambda: ref.attention_backward_reference(*heads, lse, dout.transpose(1, 2)),
+                       iters=3, warmup=1)
+    del heads
+    qs, ks, vs = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
+    y = torch.nn.functional.scaled_dot_product_attention(qs, ks, vs, is_causal=True, enable_gqa=True)
+    dos = dout.transpose(1, 2).contiguous()
+    library_ms = cuda_ms(lambda: torch.autograd.grad(y, (qs, ks, vs), dos, retain_graph=True))
+    numbers = dict(
+        max_abs_err=max_abs_err, rel_err=rel, row_err=row, torch_path_rel_err=torch_rel,
+        torch_path_row_err=torch_row, lse_max_abs_err=lse_err,
+        ms=ms, ms_eager=ms_eager, ms_by_kernel=by_kernel,
+        stats_fwd_ms=cuda_ms(lambda: ops._forward_with_stats(q, k, v)),
+        fwd_ms=cuda_ms(lambda: ops.flash_attention(q, k, v)),
+        plain_ms=plain_ms, library_ms=library_ms,
+    )
+    numbers["bound_ms"], numbers["bound_by"] = flash_bwd_bound_ms(case)
+    del q, k, v, dout, o, lse, qs, ks, vs, y, dos
+    torch.cuda.empty_cache()
+    return numbers
 
 
 def check_close(label, got, want, tol):
@@ -914,6 +1069,31 @@ def phase2_kernels(torch, gen, build_logs: dict) -> dict:
     out["flash_fwd"]["at_nemotron_hd192"] = out["flash_fwd hd192"]
     out["flash_fwd"]["at_nemotron_hd192_f32"] = out["flash_fwd f32 hd192"]
 
+    print("phase 2: flash attention's backward (flash_bwd_sm90.cu): nvcc -Xptxas -v")
+    bwd_smem = flash_ops._kernel("flash_bwd_sm90").flash_bwd_sm90_smem_bytes
+    bwd_smem.argtypes, bwd_smem.restype = [ctypes.c_int], ctypes.c_int
+    summary = ptxas_summary(build_logs.get("flash_bwd_sm90", ""))
+    if not summary:
+        print("  (no compiler output: the library was built before this run)")
+    for fn, regs, spill_st, spill_ld, smem in summary:
+        dynamic = f" + {bwd_smem(int(fn.rsplit('<', 1)[1][:-1]))} B dynamic" if "<" in fn else ""
+        print(f"  {fn}: {regs} registers, {spill_st} / {spill_ld} bytes spill stores / loads, "
+              f"{smem} B static{dynamic} shared memory")
+        if spill_st or spill_ld:
+            raise RuntimeError(f"{fn} spills registers")
+    print("phase 2: flash attention's backward through autograd vs the float64 plain versions")
+    out["flash_bwd"] = check_flash_backward(torch, GRANITE_TRAIN_ATTN, gen)
+    out["flash_bwd"]["at_zamba2_hd80"] = check_flash_backward(torch, ZAMBA_TRAIN_ATTN, gen)
+    for shape, m in ((GRANITE_TRAIN_ATTN, out["flash_bwd"]),
+                     (ZAMBA_TRAIN_ATTN, out["flash_bwd"]["at_zamba2_hd80"])):
+        print(f"  flash_bwd at {shape}: kernels {m['ms']:.4f} ms graph-replayed / "
+              f"{m['ms_eager']:.4f} ms eager ("
+              f"{', '.join(f'{n} {ms:.4f}' for n, ms in m['ms_by_kernel'].items())}), "
+              f"{m['ms'] / m['bound_ms']:.2f}x its bound {m['bound_ms']:.4f} ms ({m['bound_by']}); "
+              f"plain {m['plain_ms']:.4f} ms, library (PyTorch's fused attention's backward, eager) "
+              f"{m['library_ms']:.4f} ms; forward with statistics {m['stats_fwd_ms']:.4f} ms, "
+              f"without {m['fwd_ms']:.4f} ms", flush=True)
+
     print("phase 2: SSD, tensor-core kernel (ssd_fwd_sm90.cu): nvcc -Xptxas -v")
     ssd_smem = ssd_ops._kernel().ssd_fwd_sm90_smem_bytes()
     summary = ptxas_summary(build_logs.get("ssd_fwd_sm90", ""))
@@ -1031,6 +1211,33 @@ def expected_launches(cfg) -> dict:
     if cfg.rwkv is not None:
         return {"flash_fwd": 0, "ssd_fwd": 0, "rwkv6_fwd": cfg.n_layers}
     return {"flash_fwd": cfg.n_layers, "ssd_fwd": 0, "rwkv6_fwd": 0}
+
+
+def expected_train_launches(cfg, microbatches: int) -> dict:
+    """Launches of flash attention's stats forward and backward in
+    TRAIN_STEPS train steps of TRAIN_BATCH x TRAIN_SEQ tokens: where the
+    model is bf16 and its head dim one the backward takes (no window binds
+    at TRAIN_SEQ), each attention call runs the stats forward once, again in
+    block remat's recompute (zamba2's shared block is not rematerialised),
+    and the backward once, a microbatch and step."""
+    from repro_torch.kernels.attention.ops import BWD_HEAD_DIMS
+
+    takes = (cfg.activation_dtype == "bfloat16" and cfg.resolved_head_dim in BWD_HEAD_DIMS
+             and (cfg.sliding_window is None or TRAIN_SEQ <= cfg.sliding_window))
+    calls = expected_launches(cfg)["flash_fwd"] * microbatches * TRAIN_STEPS if takes else 0
+    return {"flash_fwd_stats": calls * (1 if cfg.family == "hybrid" else 2), "flash_bwd": calls}
+
+
+def train_attention_launches(cfg, microbatches: int, label: str) -> dict:
+    """Raise unless the stats forward and backward launches since the
+    counters were set to 0 are ``expected_train_launches``; returns them."""
+    from repro_torch.kernels.attention import ops as flash_ops
+
+    got = {"flash_fwd_stats": flash_ops.stats_launches, "flash_bwd": flash_ops.backward_launches}
+    want = expected_train_launches(cfg, microbatches)
+    if got != want:
+        raise RuntimeError(f"{label}: flash stats forward and backward launches {got}, expected {want}")
+    return got
 
 
 def moe_config(arch: str, layers_dtype):
@@ -1203,8 +1410,12 @@ def phase5b_train_cli(torch, arch: str, microbatches: int) -> dict:
             "--steps", str(TRAIN_STEPS), "--microbatches", str(microbatches), "--device", "cuda",
             "--log-every", "1"]
     print(f"phase 5b: python -m repro_torch.launch.train {' '.join(argv)}", flush=True)
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.attention import ops as flash_ops
+
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    flash_ops.stats_launches = flash_ops.backward_launches = 0
     tee = Tee(sys.stdout)
     with contextlib.redirect_stdout(tee):
         first, last = train.main(argv)
@@ -1214,6 +1425,8 @@ def phase5b_train_cli(torch, arch: str, microbatches: int) -> dict:
     numbers = train_numbers([float(ms) for _, ms in steps], [float(l) for l, _ in steps] + [first, last],
                             n_params, torch.cuda.max_memory_allocated())
     numbers["microbatches"] = microbatches
+    numbers["attention_launches"] = train_attention_launches(get_arch(arch), microbatches,
+                                                             f"phase 5b: {arch}")
     return numbers
 
 
@@ -1232,6 +1445,7 @@ def phase5b_layers(torch, arch: str) -> dict:
     MoE also mfu_6nt over the parameters active per token (top-k experts)."""
     from repro_torch import tree
     from repro_torch.data import DataConfig, make_batch
+    from repro_torch.kernels.attention import ops as flash_ops
     from repro_torch.models import build_model
     from repro_torch.optim import AdamWConfig, adamw
     from repro_torch.train import make_train_step
@@ -1247,6 +1461,7 @@ def phase5b_layers(torch, arch: str) -> dict:
                                               weight_decay=0.01))
     data = DataConfig(seed=0, global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ)
     step_ms, losses = [], []
+    flash_ops.stats_launches = flash_ops.backward_launches = 0
     for i in range(TRAIN_STEPS):
         tokens = torch.from_numpy(make_batch(cfg, data, i)["tokens"]).long().cuda()
         t0 = time.perf_counter()
@@ -1261,6 +1476,7 @@ def phase5b_layers(torch, arch: str) -> dict:
     n_params = sum(p.numel() for p in tree.leaves(params))
     numbers = train_numbers(step_ms, losses, n_params, torch.cuda.max_memory_allocated())
     numbers["microbatches"] = 1
+    numbers["attention_launches"] = train_attention_launches(cfg, 1, f"phase 5b: {depth_label(cfg)}")
     if cfg.moe:
         glu = 3 if cfg.mlp_act.endswith("_glu") else 2
         inactive = cfg.n_layers * (cfg.moe.num_experts - cfg.moe.top_k) * glu * cfg.d_model * cfg.d_ff
@@ -1353,6 +1569,21 @@ def pipeline_batch(torch, cfg, seed: int) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def torch_attention():
+    """The ``torch`` paths with ``layers.attention_torch`` wherever they
+    would run the flash kernels (``layers.takes_flash_backward`` held
+    false): a reference that launches no flash kernel."""
+    from repro_torch.models import layers
+
+    rule = layers.takes_flash_backward
+    layers.takes_flash_backward = lambda *args: False
+    try:
+        yield
+    finally:
+        layers.takes_flash_backward = rule
+
+
 def phase5c_eval(torch, cfg, counters: dict) -> dict:
     """The eval step through the kernels at full width against the torch
     paths' eval loss; returns the kernels' launch counts."""
@@ -1372,7 +1603,11 @@ def phase5c_eval(torch, cfg, counters: dict) -> dict:
         raise RuntimeError(f"{cfg.name} eval: kernel launches {launches}, expected {want}")
     launches.update(flash_launches_by_kernel(counters["flash_fwd"], launches["flash_fwd"],
                                              cfg.activation_dtype, f"{cfg.name} eval"))
-    plain = make_eval_step(build_model(cfg))(params, batch)
+    flash_before = counters["flash_fwd"].launches
+    with torch_attention():
+        plain = make_eval_step(build_model(cfg))(params, batch)
+    if counters["flash_fwd"].launches != flash_before:
+        raise RuntimeError(f"{cfg.name} eval: the torch paths launched flash attention")
     err = check_close(f"phase 5c: {cfg.name} ({cfg.n_layers} layers) eval loss, kernels vs torch "
                       f"paths, {TRAIN_BATCH} x {TRAIN_SEQ} tokens, launches {launches}",
                       fast["loss"].cpu().reshape(1), plain["loss"].cpu().reshape(1), 2e-2)
@@ -1453,7 +1688,9 @@ def train_label(arch: str) -> str:
 
 
 def phase5_training(torch, smi: str, counters: dict) -> dict:
-    """Phase 5 (a)-(e); returns the eval steps' launch counts by path."""
+    """Phase 5 (a)-(e); returns the eval steps' launch counts by path and
+    the train runs' launches of flash attention's stats forward and
+    backward by run."""
     import dataclasses
 
     from repro_torch.configs import get_arch
@@ -1488,7 +1725,7 @@ def phase5_training(torch, smi: str, counters: dict) -> dict:
         for kernel, ms in p["top_kernels_ms"]:
             print(f"  {ms:10.3f} ms  {kernel}")
     print(json.dumps({"training": training, "card": smi}))
-    return by_path
+    return by_path, {name: m["attention_launches"] for name, m in training.items()}
 
 
 def node_dims(midplanes) -> tuple:
@@ -2544,7 +2781,8 @@ def main() -> int:
 
     # -- phase 5: training ------------------------------------------------------
     t_phase = time.perf_counter()
-    by_path.update(phase5_training(torch, smi, counters))
+    train_by_path, train_launches = phase5_training(torch, smi, counters)
+    by_path.update(train_by_path)
     print(f"phase 5: wall {time.perf_counter() - t_phase:.1f} s", flush=True)
 
     # -- phase 6: the network engines --------------------------------------------
@@ -2634,6 +2872,21 @@ def main() -> int:
                                        "bound_f32_ms", "bound_f32_by", "ms_f32", "ms_eager_f32",
                                        "bound_f32_inputs_ms") if key in m},
         })
+    m = numbers["flash_bwd"]
+    kernels.append({
+        "name": "flash_bwd",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/attention/csrc/flash_bwd_sm90.cu",
+        "replaces": "jax.grad of src/repro/models/layers.py:176 attention_xla (no Pallas backward)",
+        "launches": sum(c["flash_bwd"] for c in train_launches.values()),
+        "launches_by_path": {name: c["flash_bwd"] for name, c in train_launches.items()
+                             if c["flash_bwd"]},
+        "stats_launches": sum(c["flash_fwd_stats"] for c in train_launches.values()),
+        **{key: m[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms", "ms_eager", "ms_by_kernel", "rel_err", "row_err",
+                                   "torch_path_rel_err", "torch_path_row_err", "lse_max_abs_err",
+                                   "stats_fwd_ms", "fwd_ms", "at_zamba2_hd80")},
+    })
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

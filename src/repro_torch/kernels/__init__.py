@@ -11,8 +11,10 @@ import torch
 
 
 def refuse_autograd(name: str, *tensors: torch.Tensor) -> None:
-    """Raise if autograd would record this call.  The kernels have no
-    backward (nor had the TPU kernels they replace): on the card a wrapper
+    """Raise if autograd would record this call.  The forward wrappers
+    have no backward (nor had the TPU kernels they replace; flash
+    attention's backward is ``attention.ops.FlashAttention``, which the
+    ``torch`` paths take): on the card a wrapper
     writes its output through ``ctypes``, so that output has no
     ``grad_fn`` and every gradient upstream of the call would be lost
     without a word.  The check runs on both devices, so that a CPU test

@@ -8,7 +8,10 @@ Large products go to ``torch.matmul``, as the JAX package left them to XLA.
 Attention paths:
 * ``torch``  — online-softmax causal attention over KV blocks, the
                counterpart of ``attention_xla`` (computes the masked full
-               scores, block by block).
+               scores, block by block); on the card, for bf16 tensors of a
+               head dim the backward kernels take and no binding window,
+               the flash kernels with a backward pass instead
+               (:func:`takes_flash_backward`).
 * ``banded`` — sliding-window attention over a static band per query block.
 * ``flash``  — the hand-written CUDA kernel in ``repro_torch.kernels``
                (the plain version on the CPU); takes the place of ``pallas``.
@@ -401,6 +404,24 @@ def attention_output(p: Params, ctx: torch.Tensor) -> torch.Tensor:
     return ctx.reshape(*ctx.shape[:2], H * hd) @ p["wo"].reshape(H * hd, d)
 
 
+def takes_flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cfg: ArchConfig) -> bool:
+    """Whether the ``torch`` path's attention runs on the flash kernels
+    with their backward pass (``kernels.attention.ops.FlashAttention``),
+    by what the call shows: plain CUDA tensors (not DTensors), all bf16, a
+    head dim in ``BWD_HEAD_DIMS`` and no window that binds.  Every other
+    call (the CPU, the dry-run's DTensors, float32, other head dims,
+    binding windows) keeps the plain PyTorch attention."""
+    from repro_torch.kernels.attention.ops import BWD_HEAD_DIMS
+
+    return (
+        q.device.type == "cuda"
+        and not any(hasattr(t, "placements") for t in (q, k, v))
+        and q.dtype == k.dtype == v.dtype == torch.bfloat16
+        and q.shape[-1] in BWD_HEAD_DIMS
+        and (cfg.sliding_window is None or q.shape[1] <= cfg.sliding_window)
+    )
+
+
 def run_attention(
     p: Params,
     x: torch.Tensor,
@@ -410,10 +431,16 @@ def run_attention(
 ) -> torch.Tensor:
     """Full attention sublayer for train/prefill (the ``model.attention``
     span, ``model.rope`` inside it); ``impl="kernel"`` runs the flash
-    kernel."""
+    kernel, and ``impl="torch"`` runs it too, with its statistics and
+    backward kernels under autograd, where :func:`takes_flash_backward`
+    says so (it is asked first, and alone decides that route)."""
     with obs.trace("model.attention"):
         q, k, v = qkv_project(p, x, cfg, positions)
-        if hasattr(q, "placements"):  # DTensors (the dry-run)
+        if impl == "torch" and takes_flash_backward(q, k, v, cfg):
+            from repro_torch.kernels.attention import ops as flash_ops
+
+            ctx = flash_ops.flash_attention_trainable(q, k, v)
+        elif hasattr(q, "placements"):  # DTensors (the dry-run)
             banded = cfg.sliding_window is not None and x.shape[1] > cfg.sliding_window
             ctx = attention_on_shards(attention_banded if banded else attention_torch, q, k, v, cfg)
         elif cfg.sliding_window is not None and x.shape[1] > cfg.sliding_window:

@@ -6,9 +6,11 @@ family's assembly: the transformer (dense, MoE, audio and VLM configs), the
 zamba2 hybrid or the RWKV6 LM.  The loss handles the modality quirks (the
 VLM patch prefix, MusicGen's codebook heads) and adds 0.01 x the MoE
 auxiliary loss, as JAX's does.  ``impl`` picks the paths of a full-sequence forward: ``torch`` (plain
-PyTorch, the training path) or ``kernel`` (every hand-written kernel the
+PyTorch, the training path, whose attention on the card runs the flash
+kernels with their backward pass for bf16 at a head dim they take,
+``layers.takes_flash_backward``) or ``kernel`` (every hand-written kernel the
 family has: flash attention, the SSD and WKV scans; forward only, as the
-kernels have no backward); decode always takes the torch paths.  ``remat``
+scans have no backward); decode always takes the torch paths.  ``remat``
 is the layer-rematerialisation policy of training, and ``loss_chunk`` turns
 on the chunked cross-entropy, which never holds the (B, S, V) logits at
 once.

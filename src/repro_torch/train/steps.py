@@ -24,9 +24,12 @@ float32 accumulation is ``train.accumulate`` and the AdamW update
 ``train.optimizer`` (``repro_torch.obs``).
 
 The train step takes the model's ``"torch"`` paths, as the JAX trainer takes
-``attn_impl="xla"``: the hand-written kernels have no backward, so a model
-built with ``impl="kernel"`` is refused.  The eval step is forward only and
-takes either.
+``attn_impl="xla"``.  On the card their attention, for bf16 at a head dim
+the backward kernels take, is the flash kernel with its statistics and
+``csrc/flash_bwd_sm90.cu`` in the backward pass
+(``layers.takes_flash_backward``); the SSD and WKV scan kernels have no
+backward, so a model built with ``impl="kernel"`` is refused.  The eval
+step is forward only and takes either.
 """
 
 from __future__ import annotations
@@ -106,7 +109,7 @@ def make_train_step(
     if model.impl != "torch":
         raise ValueError(
             f"make_train_step needs a model built with impl='torch', not {model.impl!r}: "
-            "the kernels have no backward pass"
+            "the scan kernels have no backward pass"
         )
     if microbatches < 1:
         raise ValueError(f"microbatches must be >= 1, got {microbatches}")

@@ -88,6 +88,7 @@ def test_kernel_sources_ship_with_the_package():
 
     names = [p.relative_to(PORT).as_posix() for p in _build.sources()]
     assert names == [
+        "kernels/attention/csrc/flash_bwd_sm90.cu",
         "kernels/attention/csrc/flash_fwd_sm90.cu",
         "kernels/attention/csrc/flash_fwd_tf32_sm90.cu",
         "kernels/rwkv6/csrc/rwkv6_fwd_sm90.cu",

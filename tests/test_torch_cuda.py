@@ -459,6 +459,129 @@ def test_kernel_paths_refuse_autograd_on_the_card(cuda, name):
 
 
 # ---------------------------------------------------------------------------
+# Flash attention's backward (csrc/flash_bwd_sm90.cu) and the training path
+# that runs it (kernels.attention.ops.FlashAttention)
+# ---------------------------------------------------------------------------
+BWD_CASES = [  # (B, S, H, K, hd)
+    (1, 256, 4, 2, 128),  # GQA 2:1 at granite's head dim
+    (2, 200, 4, 4, 64),  # MHA, S not a multiple of the tiles
+    (1, 384, 8, 2, 80),  # GQA 4:1 at zamba2's head dim
+    (4, 4096, 32, 8, 128),  # granite-3-8b's train call (8 rows in 2 microbatches)
+]
+# Each gradient's distance to the float64 gradient (norm of the difference
+# over the norm): the kernels' may be at most BWD_REL and at most 1.1x that
+# of autograd through attention_torch in bf16.  On an H100 the kernels read
+# 0.0018-0.0024 and the torch path 0.0025-0.0049 over these cases.  Each
+# row's distance over the larger of its own norm and the gradient's
+# root-mean-square row, so that a fault in a few rows or one tile shows, at
+# most BWD_ROW (chip_smoke.py's measure: the kernels read 0.026-0.053 at
+# worst, on dq; one 128-key tile left out of dq reads 0.40-1.03).
+BWD_REL = 3e-3
+BWD_ROW = 0.1
+
+
+def _bwd_inputs(case, seed=0):
+    B, S, H, K, hd = case
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = (torch.randn(B, S, n, hd, generator=gen, device="cuda").to(torch.bfloat16) for n in (H, K, K))
+    return q, k, v, torch.randn(B, S, H, hd, generator=gen, device="cuda").to(torch.bfloat16)
+
+
+def _flash_grads(q, k, v, dout):
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = ops.flash_attention_trainable(*leaves)
+    return out.detach(), torch.autograd.grad(out, leaves, dout)
+
+
+@pytest.mark.parametrize("case", BWD_CASES)
+def test_flash_backward_kernels_match_the_torch_path(cuda, case):
+    from repro_torch.models import layers
+
+    q, k, v, dout = _bwd_inputs(case)
+    before = (ops.stats_launches, ops.backward_launches)
+    out, grads = _flash_grads(q, k, v, dout)
+    assert (ops.stats_launches, ops.backward_launches) == (before[0] + 1, before[1] + 1)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    cfg = dataclasses.replace(get_arch("granite-3-8b").reduced(), sliding_window=None)
+    torch_grads = torch.autograd.grad(layers.attention_torch(*leaves, cfg), leaves, dout)
+    del leaves
+    torch.cuda.empty_cache()
+    heads = [t.double().transpose(1, 2) for t in (q, k, v)]
+    out64, lse64 = ref.attention_stats_reference(*heads)
+    exact = ref.attention_backward_reference(*heads, out64, lse64, dout.double().transpose(1, 2), blk=256)
+    torch.testing.assert_close(out.double(), out64.transpose(1, 2), atol=TOL[torch.bfloat16], rtol=TOL[torch.bfloat16])
+    for name, g, t, e in zip(("dq", "dk", "dv"), grads, torch_grads, exact):
+        e = e.transpose(1, 2)
+        assert g.dtype == torch.bfloat16 and g.shape == e.shape
+        rel = lambda x: float((x.double() - e).norm() / e.norm())
+        assert rel(g) <= BWD_REL and rel(g) <= 1.1 * rel(t), (name, rel(g), rel(t))
+        rms_row = e.norm() / (e.numel() / e.shape[-1]) ** 0.5
+        row = lambda x: float(((x.double() - e).norm(dim=-1) / e.norm(dim=-1).clamp(min=rms_row)).max())
+        assert row(g) <= BWD_ROW, (name, row(g), row(t))
+
+
+def test_flash_backward_kernels_are_deterministic(cuda):
+    """No atomics: every launch gives the same bits."""
+    q, k, v, dout = _bwd_inputs((2, 1024, 16, 4, 128), seed=1)
+    _, first = _flash_grads(q, k, v, dout)
+    for _ in range(2):
+        _, again = _flash_grads(q, k, v, dout)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+def _bf16_hd64_granite():
+    """Reduced granite (two layers, bf16) at head dim 64, which the
+    backward kernels take (the reduced config's 16 they do not)."""
+    return dataclasses.replace(get_arch("granite-3-8b").reduced(), head_dim=64)
+
+
+def test_train_step_runs_the_flash_backward_under_block_remat(cuda, monkeypatch):
+    """A train step of 2 microbatches with block remat runs the forward with
+    statistics twice a layer and microbatch (forward and recompute) and the
+    backward kernels once; its loss and gradient norm agree with the same
+    step through attention_torch."""
+    from repro_torch.models import layers
+    from repro_torch.optim import adamw
+    from repro_torch.train import make_train_step
+
+    cfg = _bf16_hd64_granite()
+    model = build_model(cfg)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 128), generator=torch.Generator().manual_seed(3)).to(cuda)
+
+    def one_step():
+        params = model.init(0, device=cuda)
+        step = make_train_step(model, adamw.AdamWConfig(lr=1e-3, warmup_steps=1), microbatches=2)
+        return step(params, adamw.init(params), {"tokens": tokens})[2]
+
+    before = (ops.launches, ops.stats_launches, ops.backward_launches)
+    flash = one_step()
+    runs = 2 * cfg.n_layers * 2
+    assert (ops.launches, ops.stats_launches, ops.backward_launches) == (
+        before[0] + runs, before[1] + runs, before[2] + cfg.n_layers * 2)
+    monkeypatch.setattr(layers, "takes_flash_backward", lambda *args: False)
+    plain = one_step()
+    assert ops.backward_launches == before[2] + cfg.n_layers * 2
+    for key in ("loss", "grad_norm"):
+        assert bool(torch.isfinite(flash[key]))
+        torch.testing.assert_close(flash[key].float(), plain[key].float(), atol=2e-2, rtol=2e-2)
+
+
+def test_forward_without_autograd_launches_no_statistics(cuda):
+    """Without autograd neither path writes statistics: ``impl="kernel"``
+    runs K1 as the score path does, and ``impl="torch"`` runs it too."""
+    cfg = _bf16_hd64_granite()
+    params = build_model(cfg).init(0, device=cuda)
+    batch = {"tokens": torch.zeros(2, 128, dtype=torch.long, device=cuda)}
+    before = (ops.launches, ops.stats_launches)
+    with torch.no_grad():
+        fast = build_model(cfg, impl="kernel").forward(params, batch)
+        plain = build_model(cfg).forward(params, batch)
+    assert (ops.launches, ops.stats_launches) == (before[0] + 2 * cfg.n_layers, before[1])
+    torch.testing.assert_close(fast[0] if isinstance(fast, tuple) else fast,
+                               plain[0] if isinstance(plain, tuple) else plain, atol=0, rtol=0)
+
+
+# ---------------------------------------------------------------------------
 # The network engines' passes (repro_torch.network): the card against the
 # port's CPU path on the same inputs.
 # ---------------------------------------------------------------------------

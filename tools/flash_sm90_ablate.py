@@ -115,7 +115,8 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(smi, flush=True)
-    fns = build(variants(SOURCE.read_text()))
+    header = '#include "flash_sm90.cuh"'
+    fns = build(variants(SOURCE.read_text().replace(header, (SOURCE.parent / "flash_sm90.cuh").read_text())))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = []
